@@ -3,6 +3,16 @@
 Modules take channels-first tensors (NCHW / NCDHW), PyTorch's layout; the
 JAX package's are channels-last. ``PConv``'s lane packing is a TPU trick
 and is not ported: a conv here is ``nn.Conv2d`` / ``nn.Conv3d``.
+
+Compute dtype: parameters stay float32 and the convs, transposed convs and
+GroupNorms cast them to the input's dtype at use, as flax's
+``promote_dtype`` does, so a bf16 input runs bf16 convs (float32
+accumulation) while the ``state_dict`` stays float32. GroupNorm on a bf16
+input is torch's fused ``group_norm``: statistics in float32, the
+normalisation in float32, one rounding to bf16. The JAX package's
+``FlatGroupNorm`` rounds its folded scale and shift to bf16 first and
+normalises in bf16: one rounding away (held at 2e-2 on probabilities by
+``tests/test_torch_segment_volume_3d.py``).
 """
 
 from __future__ import annotations
@@ -13,8 +23,42 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
-_CONVT = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+
+def _params_as(m: nn.Module, x: torch.Tensor):
+    """``m``'s weight and bias in ``x``'s dtype (no copy when they match)."""
+    bias = None if m.bias is None else m.bias.to(x.dtype)
+    return m.weight.to(x.dtype), bias
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *_params_as(self, x))
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *_params_as(self, x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, *_params_as(self, x), self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(x, *_params_as(self, x), self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+class GroupNorm(nn.GroupNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, *_params_as(self, x), self.eps)
+
+
+_CONV = {2: Conv2d, 3: Conv3d}
+_CONVT = {2: ConvTranspose2d, 3: ConvTranspose3d}
 _BN = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 
 
@@ -35,7 +79,7 @@ def make_norm(kind: str, channels: int, ndim: int) -> nn.Module:
     if kind == "batch":
         return _BN[ndim](channels, eps=1e-5, momentum=0.1)
     if kind == "group":
-        return nn.GroupNorm(max(1, channels // 16), channels, eps=1e-6)
+        return GroupNorm(max(1, channels // 16), channels, eps=1e-6)
     raise ValueError(f"unknown norm {kind!r}")
 
 

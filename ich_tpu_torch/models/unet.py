@@ -5,6 +5,11 @@ Channels-first. Submodules carry the reference torch network's
 ``up_samp.{i}``, ``up_block.{i}``, ``final_conv``), so
 ``ich_tpu.interop.torch_port.port_unet`` maps a port ``state_dict`` to the
 JAX package's variables unchanged.
+
+``dtype`` is the compute dtype, as the JAX package's ``UNet(dtype=...)``:
+the input is cast to it, parameters stay float32 and are cast at use
+(:mod:`ich_tpu_torch.models.layers`), and the final 1x1 conv's output is
+cast to float32 before the sigmoid or softmax.
 """
 
 from __future__ import annotations
@@ -43,11 +48,13 @@ class UNet(nn.Module):
                  in_channels: int = 1, out_channels: int = 1, top_filter: int = 64,
                  midchannels_factor: int = 2,
                  p_dropout: Union[float, Sequence[float]] = 0.5,
-                 use_final_activation: bool = True, norm: str = "batch"):
+                 use_final_activation: bool = True, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         self.ndim = ndim
+        self.dtype = dtype
         self.bilinear = bilinear
         self.out_channels = out_channels
         self.use_final_activation = use_final_activation
@@ -75,6 +82,7 @@ class UNet(nn.Module):
         self.final_conv = _CONV[ndim](c, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         skips = []
         for block in self.down_block:
             x = block(x)

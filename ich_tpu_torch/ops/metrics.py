@@ -30,3 +30,54 @@ def dice_from_counts(
 ) -> torch.Tensor:
     """Smoothed Dice ``(2TP+s)/(2TP+FP+FN+s)``."""
     return (2.0 * tp + smooth) / (2.0 * tp + fp + fn + smooth)
+
+
+def iou_from_counts(
+    tp: torch.Tensor, fp: torch.Tensor, fn: torch.Tensor, eps: float = 1.0
+) -> torch.Tensor:
+    """Smoothed IoU ``(TP+eps)/(TP+FP+FN+eps)``."""
+    return (tp + eps) / (tp + fp + fn + eps)
+
+
+def volume_counts(
+    tp: torch.Tensor,
+    fp: torch.Tensor,
+    fn: torch.Tensor,
+    volume_ids: torch.Tensor,
+    num_volumes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sum per-slice confusion counts into per-volume counts on the device;
+    ``volume_ids`` maps each slice to a dense index in ``[0, num_volumes)``
+    (the JAX package's ``segment_sum``)."""
+    vids = volume_ids.to(device=tp.device, dtype=torch.long)
+
+    def seg(x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(num_volumes, dtype=x.dtype, device=x.device).index_add_(0, vids, x)
+
+    return seg(tp), seg(fp), seg(fn)
+
+
+def volume_dice(
+    tp: torch.Tensor,
+    fp: torch.Tensor,
+    fn: torch.Tensor,
+    volume_ids: torch.Tensor,
+    num_volumes: int,
+    smooth: float = 1.0,
+) -> torch.Tensor:
+    """Per-volume Dice from per-slice counts."""
+    vtp, vfp, vfn = volume_counts(tp, fp, fn, volume_ids, num_volumes)
+    return dice_from_counts(vtp, vfp, vfn, smooth)
+
+
+def dice_all_and_positive(
+    vol_dice: torch.Tensor, vol_has_ich: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean volumetric Dice over all volumes and over the ICH-positive ones
+    (``vol_has_ich``: a boolean mask of volumes with a positive voxel); the
+    positive mean is 0 where there is no positive volume."""
+    d_all = torch.mean(vol_dice)
+    pos = vol_has_ich.to(torch.float32)
+    n_pos = torch.clamp(torch.sum(pos), min=1.0)
+    d_pos = torch.sum(vol_dice * pos) / n_pos
+    return d_all, d_pos

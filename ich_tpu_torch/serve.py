@@ -2,7 +2,9 @@
 arrive (counterpart of ``scripts/serve.py``).
 
 Polls ``--watch-dir`` for new ``.nii``/``.nii.gz`` files, runs pipelined
-full-volume 2.5D segmentation, writes ``<name>_mask.nii.gz`` to
+full-volume segmentation (``--mode 2.5d``: slice batches of a 2D U-Net;
+``--mode 3d``: Gaussian-blended ``--patch``^3 sliding window of a GroupNorm
+3D U-Net in bf16), writes ``<name>_mask.nii.gz`` to
 ``--output-dir`` and a ``<name>.done`` marker. Masks are written to a temp
 name and renamed, and a volume is marked done only after its mask is on
 disk, so a restarted server re-processes exactly the unfinished files. A
@@ -14,9 +16,12 @@ Examples::
     python -m ich_tpu_torch.serve --watch-dir /in --output-dir /out \\
         --model model.pt --size 256
     python -m ich_tpu_torch.serve --watch-dir /in -o /out -m model.pt --once
+    python -m ich_tpu_torch.serve --watch-dir /in -o /out -m model3d.pt \\
+        --mode 3d --depth 4 --top-filter 16 --patch 64
 
-``--model`` is a ``state_dict`` written by ``UNet2D.save_model`` (or by
-``scripts/jax_to_torch_model.py`` from a JAX model).
+``--model`` is a ``state_dict`` written by ``UNet2D.save_model`` or
+``UNet3D.save_model`` (or by ``scripts/jax_to_torch_model.py`` from a JAX
+model).
 """
 
 from __future__ import annotations
@@ -83,15 +88,22 @@ def _pending(watch_dir: str, output_dir: str, settle_s: float = 0.0):
     return out
 
 
-def _build_trainer(mode: str, model_path: str, depth: int, top_filter: int, device: str):
-    if mode == "3d":
-        raise NotImplementedError(
-            "--mode 3d is not ported yet: ROADMAP.md, modules to port, item 1 "
-            "(3D sliding window and serve --mode 3d)")
-    from ich_tpu_torch.models.unet import UNet
-    from ich_tpu_torch.train.segmentation2d import UNet2D
+def _build_trainer(mode: str, model_path: str, depth: int, top_filter: int, patch: int,
+                   device: str):
+    import torch
 
-    tr = UNet2D(UNet(depth=depth, top_filter=top_filter, p_dropout=0.0), device=device)
+    from ich_tpu_torch.models.unet import UNet
+
+    if mode == "2.5d":
+        from ich_tpu_torch.train.segmentation2d import UNet2D
+
+        tr = UNet2D(UNet(depth=depth, top_filter=top_filter, p_dropout=0.0), device=device)
+    else:
+        from ich_tpu_torch.train.segmentation3d import UNet3D
+
+        tr = UNet3D(UNet(depth=depth, ndim=3, top_filter=top_filter, p_dropout=0.0,
+                         norm="group", dtype=torch.bfloat16),
+                    patch_size=(patch,) * 3, device=device)
     tr.load_model(model_path)
     return tr
 
@@ -149,7 +161,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     os.makedirs(args.output_dir, exist_ok=True)
     trainer = _build_trainer(args.mode, args.model_path, args.depth, args.top_filter,
-                             args.device)
+                             args.patch, args.device)
     out_dir = args.output_dir
     logger.info("serving %s -> %s (%s on %s)", args.watch_dir, out_dir, args.mode,
                 trainer.device)
@@ -178,7 +190,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 os.remove(retry_fn)
             names.append(name)
             affines.append(affine)
-            vols.append(vol)
+            # the 3D path takes (D, H, W), the loader's layout; 2.5D (H, W, D)
+            vols.append(np.transpose(vol, (2, 0, 1)) if args.mode == "3d" else vol)
         if not names:
             if args.once:
                 break
@@ -187,10 +200,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         tmp_fns = [os.path.join(out_dir, f".{n}_mask.tmp.nii.gz") for n in names]
 
         t0 = time.time()
-        trainer.segment_volumes(
-            iter(vols), affines=affines, save_fns=tmp_fns,
-            window=(args.win_center, args.win_width), input_size=(args.size, args.size),
-        )
+        window = (args.win_center, args.win_width)
+        if args.mode == "3d":
+            preds = trainer.segment_volumes(iter(vols), window=window, return_preds=True)
+            for pred, affine, tmp in zip(preds, affines, tmp_fns):
+                nifti.save(tmp, np.transpose(pred, (1, 2, 0)), affine)
+        else:
+            trainer.segment_volumes(iter(vols), affines=affines, save_fns=tmp_fns,
+                                    window=window, input_size=(args.size, args.size))
         for name, tmp in zip(names, tmp_fns):
             final = os.path.join(out_dir, f"{name}_mask.nii.gz")
             os.replace(tmp, final)

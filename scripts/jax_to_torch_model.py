@@ -1,10 +1,12 @@
 """Convert a JAX U-Net model file to the PyTorch port's format.
 
-Reads a file written by ``ich_tpu``'s ``UNet2D.save_model`` (flax msgpack of
-``{"params": ..., "batch_stats": ...}``) and writes the ``state_dict`` that
-``ich_tpu_torch``'s ``UNet2D.load_model`` reads, so a model trained with
-``ich_tpu`` can be served by ``python -m ich_tpu_torch.serve``. Runs where
-JAX (flax) and PyTorch are both installed::
+Reads a file written by ``ich_tpu``'s ``UNet2D.save_model`` or
+``UNet3D.save_model`` (flax msgpack of ``{"params": ..., "batch_stats":
+...}``; a GroupNorm net, such as the 3D one, has no ``batch_stats``) and
+writes the ``state_dict`` that ``ich_tpu_torch``'s ``UNet2D.load_model`` /
+``UNet3D.load_model`` reads, so a model trained with ``ich_tpu`` can be
+served by ``python -m ich_tpu_torch.serve`` (``--mode 3d`` for a 3D model).
+Runs where JAX (flax) and PyTorch are both installed::
 
     python scripts/jax_to_torch_model.py model.bin model.pt
 """

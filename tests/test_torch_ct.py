@@ -4,6 +4,7 @@ numpy-seeded inputs."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import scipy.ndimage as ndi
 import torch
 
 from ich_tpu.ops import ct as jct
@@ -71,3 +72,80 @@ def test_confusion_counts_and_dice_match_jax():
         rtol=1e-7)
     with pytest.raises(ValueError):
         metrics.batch_binary_confusion_matrix(torch.zeros(2, 3), torch.zeros(2, 4))
+
+
+@pytest.mark.parametrize("n_in,n_out", [(48, 24), (20, 33), (33, 20), (10, 10), (7, 1), (24, 48)])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_resize_nearest_zoom_matches_jax_and_scipy(n_in, n_out, dtype):
+    """scipy.ndimage.zoom's endpoint-aligned round-half-up grid. 48->24 is
+    the case where scipy lands the last coordinate just outside the axis and
+    zeroes it; the JAX package and the port clamp it, so the last index is
+    left out of the scipy comparison and held against JAX only."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(1, 255, size=(n_in, 6, 3)).astype(dtype)
+    shape = (n_out, 6, 3)
+    want = np.asarray(jct.resize_nearest_zoom(jnp.asarray(x), shape))
+    got = ct.resize_nearest_zoom(torch.from_numpy(x), shape).numpy()
+    assert got.dtype == x.dtype
+    np.testing.assert_array_equal(got, want)
+    if n_out > 1:
+        scipy_ = ndi.zoom(x, (n_out / n_in, 1, 1), order=0, grid_mode=False)
+        np.testing.assert_array_equal(got[:-1], scipy_[:-1])
+
+
+@pytest.mark.parametrize("src,dst", [((48, 24, 5), (24, 24, 5)), ((20, 24, 10), (10, 12, 20)),
+                                     ((16, 9, 4), (37, 9, 3))])
+def test_resize_linear_zoom_matches_jax(src, dst):
+    """Endpoint-aligned linear, no antialias: within 1e-5 of
+    jax.image.scale_and_translate (float32 weights on both sides), and
+    within 1e-4 of scipy.ndimage.zoom(order=1) off the last index."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-100, 300, size=src).astype(np.float32)
+    want = np.asarray(jct._resize_linear_zoom(jnp.asarray(x), dst))
+    got = ct._resize_linear_zoom(torch.from_numpy(x), dst).numpy()
+    assert got.shape == dst
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * 300)
+    scipy_ = ndi.zoom(x, [o / i for o, i in zip(dst, src)], order=1, grid_mode=False)
+    np.testing.assert_allclose(got[:-1, :-1, :-1], scipy_[:-1, :-1, :-1], rtol=0, atol=1e-4 * 300)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("preserve_range", [True, False])
+def test_resample_ct_matches_jax(order, preserve_range):
+    rng = np.random.default_rng(6)
+    vol = rng.uniform(-100, 300, size=(20, 24, 10)).astype(np.float32)
+    for in_dim, out_dim in [((0.5, 0.5, 5.0), (-1, -1, 2.5)), ((0.7, 0.7, 3.0), (1.0, 1.0, 2.0))]:
+        assert ct._resampled_shape(vol.shape, in_dim, out_dim) == \
+            jct._resampled_shape(vol.shape, in_dim, out_dim)
+        want = np.asarray(jct.resample_ct(jnp.asarray(vol), in_dim, out_dim,
+                                          preserve_range=preserve_range, order=order))
+        got = ct.resample_ct(torch.from_numpy(vol), in_dim, out_dim,
+                             preserve_range=preserve_range, order=order).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * 300)
+
+
+def test_volume_metrics_match_jax():
+    """iou_from_counts, volume_counts (index_add_ for segment_sum),
+    volume_dice and dice_all_and_positive; counts exact, ratios within
+    1e-7 relative."""
+    rng = np.random.default_rng(7)
+    tp, fp, fn = (rng.integers(0, 500, size=12).astype(np.float32) for _ in range(3))
+    vids = np.asarray([0, 0, 2, 1, 1, 1, 2, 0, 3, 3, 2, 1], np.int32)
+    has_ich = np.asarray([True, False, True, False])
+    jt, jf, jn = (jnp.asarray(a) for a in (tp, fp, fn))
+    tt, tf, tn = (torch.from_numpy(a) for a in (tp, fp, fn))
+    np.testing.assert_allclose(metrics.iou_from_counts(tt, tf, tn).numpy(),
+                               np.asarray(jmetrics.iou_from_counts(jt, jf, jn)), rtol=1e-7)
+    want = jmetrics.volume_counts(jt, jf, jn, jnp.asarray(vids), 4)
+    got = metrics.volume_counts(tt, tf, tn, torch.from_numpy(vids), 4)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    vd = metrics.volume_dice(tt, tf, tn, torch.from_numpy(vids), 4)
+    jvd = jmetrics.volume_dice(jt, jf, jn, jnp.asarray(vids), 4)
+    np.testing.assert_allclose(vd.numpy(), np.asarray(jvd), rtol=1e-7)
+    for mask in (has_ich, np.zeros(4, bool)):
+        got = metrics.dice_all_and_positive(vd, torch.from_numpy(mask))
+        want = jmetrics.dice_all_and_positive(jvd, jnp.asarray(mask))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(float(g), float(w), rtol=1e-6)

@@ -12,6 +12,7 @@ import torch
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import edt
 from ich_tpu_torch.train.segmentation2d import UNet2D
+from ich_tpu_torch.train.segmentation3d import UNet3D
 
 pytestmark = pytest.mark.cuda
 
@@ -53,3 +54,18 @@ def test_segment_volume_card_matches_cpu(card):
     got = gpu.segment_volume(vol, window=(50, 200), input_size=(32, 32), return_pred=True)
     assert got.shape == vol.shape
     assert np.mean(got == want) >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_volume_3d_card_matches_cpu(card, dtype):
+    """The 3D sliding-window path (d3 f8 GroupNorm, 16^3 patches) on the
+    card against the CPU at 32^3: float32 (TF32 off) agrees on >= 99.9% of
+    voxels, bf16 on >= 99%."""
+    torch.manual_seed(0)
+    net = UNet(depth=3, ndim=3, top_filter=8, norm="group", p_dropout=0.0, dtype=dtype)
+    vol = np.random.default_rng(1).uniform(-50, 150, size=(32, 32, 32)).astype(np.float32)
+    kw = dict(window=(50, 200))
+    want = UNet3D(net, patch_size=(16, 16, 16), device="cpu").segment_volume(vol, **kw)
+    got = UNet3D(net, patch_size=(16, 16, 16), device="cuda").segment_volume(vol, **kw)
+    assert got.shape == vol.shape and got.dtype == np.uint8
+    assert np.mean(got == want) >= (0.999 if dtype == torch.float32 else 0.99)

@@ -29,4 +29,4 @@ def test_port_and_chip_smoke_import_without_jax():
     r = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15  # every submodule of the slice was imported
+    assert int(r.stdout.split()[-1]) >= 25  # every submodule of the slices was imported

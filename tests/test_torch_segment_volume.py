@@ -19,6 +19,7 @@ from ich_tpu_torch.data import nifti
 from ich_tpu_torch.interop.from_jax import unet_state_dict_from_jax
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.train.segmentation2d import UNet2D
+from ich_tpu_torch.train.segmentation3d import UNet3D
 
 torch.set_num_threads(2)
 
@@ -149,11 +150,20 @@ def test_serve_vol_name_and_mask_outputs_not_reingested(tmp_path):
 
 
 def test_serve_refuses_3d_and_missing_card(pair, tmp_path):
+    """``--mode 3d`` serves a 3D GroupNorm model (it raised before the 3D
+    path was ported); ``--device cuda`` without a card still raises."""
     _, pt = pair
     model_fn = str(tmp_path / "m.pt")
     pt.save_model(model_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(_serve_args(tmp_path, tmp_path / "o", model_fn, "--mode", "3d"))
+    watch = tmp_path / "watch3d"
+    os.makedirs(watch)
+    nifti.save(str(watch / "v.nii.gz"), synthetic_ich_volume(size=32, depth=9, seed=7)[0])
+    model3d = str(tmp_path / "m3d.pt")
+    UNet3D(UNet(depth=3, ndim=3, top_filter=8, norm="group", p_dropout=0.0),
+           patch_size=(16, 16, 16), device="cpu").save_model(model3d)
+    serve.main(_serve_args(watch, tmp_path / "o", model3d, "--mode", "3d", "--patch", "16"))
+    mask, _, _ = nifti.load(str(tmp_path / "o" / "v_mask.nii.gz"))
+    assert mask.shape == (32, 32, 9) and (tmp_path / "o" / "v.done").exists()
     if not torch.cuda.is_available():  # never a silent switch to the CPU
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(_serve_args(tmp_path, tmp_path / "o", model_fn, "--device", "cuda"))
