@@ -28,7 +28,24 @@ its last line:
    each other); a 64x128x128 crop in float32 (TF32 off) agrees with the CPU
    on at least 99.99% of voxels and within 1e-4 in probability; bf16 is
    held against float32 on the card; then warm latency, pipelined seconds
-   per volume, peak device memory, FLOP rate and a profiler breakdown.
+   per volume, peak device memory, FLOP rate and a profiler breakdown;
+6. 2.5D training at the width of ``configs/unet2d.json`` (UNet depth 5,
+   top_filter 32, midchannels_factor 1, dropout 0.5, BatchNorm, float32,
+   256x256 slices, batch 16, BinaryDiceLoss, Adam with L2 and ExponentialLR,
+   the config's four affine augmentations): (a) the k-fold experiment
+   ``run_supervised_2d`` end to end, 2 folds x 2 epochs with per-epoch
+   validation, each fold training on 512 synthetic slices over 16 volumes
+   kept on the card and testing on 128 over 4, its artifacts checked and
+   the mean loss falling from epoch 1 to 2 in each fold; (b) three train
+   steps of the full-width net on a fixed batch of 4 (dropout and
+   augmentation off, TF32 off) on the card and on the CPU, losses and
+   weights within the printed tolerances; (c) the config's augmentation
+   with one set of affine parameters injected, 16x256x256 on the card and
+   on the CPU, masks equal and images within 1e-5; (d) warm train-step
+   times at batch 16 and 128 (``configs/unet2d_throughput.json``) with TF32
+   on and off, peak device memory, the FLOPs of a step and their rate, and
+   the epoch time with and without validation; (e) a profiler breakdown of
+   one warm step.
 
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after. The line before the last is a JSON object with each
@@ -53,9 +70,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import serve
 from ich_tpu_torch.data import nifti
+from ich_tpu_torch.data.synthetic import synthetic_ich_slices
+from ich_tpu_torch.experiments.supervised2d import build_unet_from_cfg, run_supervised_2d
 from ich_tpu_torch.kernels import _build
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
+from ich_tpu_torch.ops.transforms import build_pipeline
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
@@ -77,6 +97,12 @@ NET3D = dict(depth=4, ndim=3, top_filter=16, midchannels_factor=2, norm="group",
 PATCH3D = 64
 CROP3D = (slice(0, 64), slice(192, 320), slice(192, 320))  # 9 patches of 64^3
 H100_BF16_TFLOPS = 989.0  # dense, SXM, at 700 W (NVIDIA's data sheet)
+H100_TF32_TFLOPS, H100_FP32_TFLOPS = 495.0, 67.0  # the same data sheet
+# phase 6: configs/unet2d.json at its width; (slices, volumes) per fold
+TRAIN_CFG = "configs/unet2d.json"
+TRAIN_FOLD, TEST_FOLD = (512, 16), (128, 4)
+HOLD_BATCH = 4
+TIMED_BATCHES = (16, 128)  # configs/unet2d.json, configs/unet2d_throughput.json
 DEV = "cuda"
 
 
@@ -388,39 +414,47 @@ class _Annotated(torch.nn.Module):
             return self.net(x)
 
 
-# aten ops by what they do in the 3D path, matched on the op's name
-OP_GROUPS = (("conv", ("conv",)), ("group_norm", ("group_norm",)),
-             ("relu", ("relu", "threshold", "clamp_min")), ("max_pool", ("max_pool",)),
-             ("cat", ("aten::cat",)), ("copy", ("copy_", "to_copy")))
+# aten ops by what they do, matched on the op's name: the 3D path's and a
+# train step's
+OP_GROUPS_3D = (("conv", ("conv",)), ("group_norm", ("group_norm",)),
+                ("relu", ("relu", "threshold", "clamp_min")), ("max_pool", ("max_pool",)),
+                ("cat", ("aten::cat",)), ("copy", ("copy_", "to_copy")))
+OP_GROUPS_TRAIN = (("conv backward", ("convolution_backward",)), ("conv forward", ("conv",)),
+                   ("batch_norm", ("batch_norm",)), ("adam", ("_foreach_",)),
+                   ("copy", ("copy_", "to_copy")))
 
 
-def _profile_summary(prof, wall_ms: float) -> str:
-    """Device time of one profiled volume: busy share, the net's share and
-    its op groups, the rest (blend, window, threshold, copies), and the top
-    kernels."""
+def _profile_summary(prof, wall_ms: float, label: str, groups: tuple, ranges: tuple) -> str:
+    """Device time of one profiled call: busy share, the device time inside
+    each ``record_function`` range, aten ops by group (``other`` for the
+    rest) and by name, and the top kernels."""
     cuda = torch.autograd.DeviceType.CUDA
     ev = prof.key_averages()
-    # the range's own device-side annotation is a span, not a kernel
-    kernels = [e for e in ev if e.device_type == cuda and e.key != "unet3d"]
+    # a range's own device-side annotation is a span, not a kernel
+    kernels = [e for e in ev if e.device_type == cuda and e.key not in ranges]
     total = sum(e.self_device_time_total for e in kernels)
     if total <= 0:
-        return "profile: no device time recorded"
-    net_us = sum(e.device_time_total for e in ev if e.key == "unet3d" and e.device_type != cuda)
-    groups = defaultdict(float)
-    for e in ev:
-        if e.device_type == cuda or e.key == "unet3d" or e.self_device_time_total <= 0:
-            continue
-        name = next((g for g, keys in OP_GROUPS if any(k in e.key for k in keys)), e.key)
-        groups[name] += e.self_device_time_total
-    ops = ", ".join(f"{k} {100 * v / total:.1f}%"
-                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1])[:10])
-    top = ", ".join(f"{e.key[:70]} {100 * e.self_device_time_total / total:.1f}%"
-                    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8])
-    return (f"profile (bf16, one warm segment_volume): wall {wall_ms:.1f} ms, device "
-            f"time {total / 1e3:.1f} ms (busy {100 * total / 1e3 / wall_ms:.1f}%), the net "
-            f"{100 * net_us / total:.1f}% of it and the blend, window, threshold and copies "
-            f"{100 * (total - net_us) / total:.1f}%\nprofile ops by device time: {ops}\n"
-            f"profile top kernels: {top}")
+        return f"{label}: no device time recorded"
+    ops = [e for e in ev if e.device_type != cuda and e.key not in ranges
+           and e.self_device_time_total > 0]
+    by_group = defaultdict(float)
+    for e in ops:
+        by_group[next((g for g, keys in groups if any(k in e.key for k in keys)), "other")] += (
+            e.self_device_time_total)
+
+    def shares(items, n):
+        return ", ".join(f"{k[:60]} {100 * v / total:.1f}%"
+                         for k, v in sorted(items, key=lambda kv: -kv[1])[:n])
+
+    in_ranges = [(r, sum(e.device_time_total for e in ev if e.key == r and e.device_type != cuda))
+                 for r in ranges]
+    return (f"{label}: wall {wall_ms:.2f} ms, device time {total / 1e3:.2f} ms (busy "
+            f"{100 * total / 1e3 / wall_ms:.1f}%)\n"
+            f"{label} ranges (device time inside): {shares(in_ranges, len(ranges))}\n"
+            f"{label} ops by group: {shares(by_group.items(), len(groups) + 1)}\n"
+            f"{label} top ops: {shares(((e.key, e.self_device_time_total) for e in ops), 12)}\n"
+            f"{label} top kernels: "
+            f"{shares(((e.key, e.self_device_time_total) for e in kernels), 8)}")
 
 
 def phase_3d(rng: np.random.Generator, work: str) -> None:
@@ -549,7 +583,272 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
         t0 = time.perf_counter()
         trainer.segment_volume(vols[1], window=WINDOW)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print(_profile_summary(prof, wall_ms))
+    print(_profile_summary(prof, wall_ms, "3d profile (bf16, one warm segment_volume)",
+                           OP_GROUPS_3D, ("unet3d",)))
+
+
+def load_train_cfg(out_dir: str) -> dict:
+    """``configs/unet2d.json`` cut to 2 folds of 2 epochs, writing under
+    ``out_dir``."""
+    with open(TRAIN_CFG) as f:
+        cfg = json.load(f)
+    cfg["path"] = {"DATA": out_dir, "OUTPUT": out_dir}
+    cfg["split"]["n_fold"] = 2
+    cfg["train"]["n_epoch"] = 2
+    return cfg
+
+
+def _fold_data(cfg: dict):
+    size = cfg["data"]["size"]
+    return [(synthetic_ich_slices(n_slices=TRAIN_FOLD[0], size=size, n_volumes=TRAIN_FOLD[1],
+                                  seed=SEED + k),
+             synthetic_ich_slices(n_slices=TEST_FOLD[0], size=size, n_volumes=TEST_FOLD[1],
+                                  seed=SEED + 100 + k))
+            for k in range(cfg["split"]["n_fold"])]
+
+
+def _trainer(cfg: dict, device, net: dict | None = None, **overrides) -> UNet2D:
+    """A trainer of the config's net and training settings, ``net`` and
+    ``overrides`` replacing some of them."""
+    tr = {**cfg["train"], **overrides}
+    return UNet2D(build_unet_from_cfg({**cfg["net"], **(net or {})}, seed=SEED),
+                  n_epoch=tr["n_epoch"], batch_size=tr["batch_size"], lr=tr["lr"],
+                  lr_scheduler=tr["lr_scheduler"], lr_scheduler_kwargs=tr["lr_scheduler_kwargs"],
+                  loss_fn=tr["loss_fn"], loss_fn_kwargs=tr["loss_fn_kwargs"],
+                  weight_decay=tr["weight_decay"], seed=SEED,
+                  augment_fn=tr.get("augment_fn"), device=device)
+
+
+def _train_kfold(cfg: dict, folds: list) -> None:
+    """(a) the k-fold experiment end to end."""
+    edt.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_supervised_2d(cfg, datasets_by_fold=lambda k: folds[k], device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k in range(cfg["split"]["n_fold"]):
+        fold = os.path.join(out, f"Fold_{k + 1}")
+        for name in ("outputs.json", "trained_unet.bin", "log.txt",
+                     "pred/slice_prediction_scores.csv", "pred/volume_prediction_scores.csv"):
+            check(os.path.exists(os.path.join(fold, name)), f"train2d fold {k + 1}: no {name}")
+        check(not os.path.exists(os.path.join(fold, "checkpoint.bin")),
+              f"train2d fold {k + 1}: checkpoint not deleted")
+        bmps = sum(f.endswith(".bmp") for _, _, fs in os.walk(os.path.join(fold, "pred"))
+                   for f in fs)
+        check(bmps == TEST_FOLD[0], f"train2d fold {k + 1}: {bmps} BMPs, not {TEST_FOLD[0]}")
+        with open(os.path.join(fold, "pred/slice_prediction_scores.csv")) as f:
+            n_rows = sum(1 for _ in f) - 1
+        check(n_rows == TEST_FOLD[0], f"train2d fold {k + 1}: {n_rows} slice rows")
+        with open(os.path.join(fold, "outputs.json")) as f:
+            o = json.load(f)
+        hist = o["train"]["evolution"]
+        losses = [row[1] for row in hist]
+        print(f"train2d fold {k + 1}: epoch losses {losses!r}, validation Dice per epoch "
+              f"{[row[2] for row in hist]!r}, test Dice {o['eval']['dice']['all']!r} "
+              f"(positive {o['eval']['dice']['positive']!r}), train time "
+              f"{o['train']['time']!r} s, evaluate {o['eval']['time']!r} s")
+        check(all(np.isfinite(losses)) and losses[1] < losses[0],
+              f"train2d fold {k + 1}: the mean loss did not fall {losses}")
+    for name in ("average_scores.txt", "all_volume_prediction.csv", "config.json"):
+        check(os.path.exists(os.path.join(out, name)), f"train2d: no {name}")
+    with open(os.path.join(out, "average_scores.txt")) as f:
+        avg = f.read().strip().replace("\n", "; ")
+    print(f"train2d k-fold: {cfg['split']['n_fold']} folds x {cfg['train']['n_epoch']} epochs "
+          f"in {wall!r} s ({avg}); port kernel launches on the training path "
+          f"{{'edt_minplus_pass': {edt.launches}}}")
+
+
+def _hold_run(cfg: dict, dev, x, threads: int) -> dict:
+    """The step-1 loss and gradient at the fresh weights, then three steps
+    on a fresh copy of the same weights, with ``threads`` CPU threads."""
+    torch.set_num_threads(threads)
+    t = _trainer(cfg, dev, batch_size=HOLD_BATCH, net={"p_dropout": 0.0})
+    t.unet.train()
+    xb, yb = (torch.from_numpy(a)[..., None].to(t.device) for a in (x.images, x.masks))
+    loss = t.loss(t.unet(xb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1), yb)
+    loss.backward()
+    grad = torch.cat([p.grad.flatten().cpu() for p in t.unet.parameters()])
+    t = _trainer(cfg, dev, n_epoch=3, batch_size=HOLD_BATCH, net={"p_dropout": 0.0})
+    t.train(x.device_cache(t.device))
+    flat = lambda ts: torch.cat([v.detach().flatten().cpu() for v in ts])  # noqa: E731
+    return {"loss1": float(loss.detach()), "grad": grad,
+            "losses": [row[1] for row in t.outputs["train"]["evolution"]],
+            "params": flat(t.unet.parameters()),
+            "stats": flat(b for b in t.unet.buffers() if b.is_floating_point()),
+            "lrs": [t.state.schedule(i) for i in range(3)]}
+
+
+def _train_hold(cfg: dict, fold) -> None:
+    """(b) three full-width train steps on the card and on the CPU.
+
+    At the fresh weights the Dice loss's gradient is nearly constant over
+    the pixels and BatchNorm's backward subtracts that constant, so most
+    weight gradients are mostly float32 rounding: two CPU runs that differ
+    only in their thread count already disagree by a few percent. The card
+    is held against the CPU as closely as the CPU agrees with itself under
+    another summation order, and Adam bounds what is left."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = fold.subset(np.arange(HOLD_BATCH))
+    n = torch.get_num_threads()
+    card = _hold_run(cfg, DEV, x, n)
+    cpu = _hold_run(cfg, "cpu", x, n)
+    ref = _hold_run(cfg, "cpu", x, max(1, n // 2))
+    torch.set_num_threads(n)
+    torch.backends.cudnn.allow_tf32 = True
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    loss1 = abs(card["loss1"] - cpu["loss1"]) / abs(cpu["loss1"])
+    traj = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    traj_ref = max(abs(a - b) / abs(b) for a, b in zip(ref["losses"], cpu["losses"]))
+    g, g_ref = rel(card["grad"], cpu["grad"]), rel(ref["grad"], cpu["grad"])
+    st, st_ref = rel(card["stats"], cpu["stats"]), rel(ref["stats"], cpu["stats"])
+    w, w_ref = rel(card["params"], cpu["params"]), rel(ref["params"], cpu["params"])
+    d = (card["params"] - cpu["params"]).abs()
+    # bias-corrected Adam moves a weight by at most 1.004 lr a step for t <= 3
+    bound = 2 * 1.005 * sum(cpu["lrs"]) + 1e-6
+    print(f"train2d step hold, full width, batch {HOLD_BATCH}, TF32 off, card vs cpu "
+          f"({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): step-1 loss rel "
+          f"diff {loss1!r} (tolerance 1e-6); losses over 3 steps card {card['losses']!r} cpu "
+          f"{cpu['losses']!r}, max rel diff {traj!r} (reference {traj_ref!r}, tolerance 2e-4); "
+          f"step-1 gradient rel L2 diff {g!r} (reference {g_ref!r}, tolerance 10x the "
+          f"reference); running stats rel L2 diff after 3 steps {st!r} (reference {st_ref!r}, "
+          f"tolerance 10x); weights rel L2 diff {w!r} (reference {w_ref!r}), max |diff| "
+          f"{float(d.max())!r}, share within 1e-4 {float((d <= 1e-4).float().mean())!r} "
+          f"(tolerance: all within {bound!r}, Adam's bound)")
+    check(loss1 <= 1e-6 and traj <= 2e-4, "train2d: card and cpu losses disagree")
+    check(g <= max(10 * g_ref, 1e-6) and st <= max(10 * st_ref, 1e-6),
+          "train2d: card and cpu gradients disagree")
+    check(float(d.max()) <= bound, "train2d: a weight moved beyond Adam's bound")
+
+
+def _warp_hold(cfg: dict, fold) -> None:
+    """(c) the config's Compose with injected (m, o), card against CPU."""
+    spec = cfg["data"]["augmentation"]["train"]
+    gen = torch.Generator().manual_seed(SEED)
+    b, size = TIMED_BATCHES[0], cfg["data"]["size"]
+    params = [t.affine_params(gen, b, (size, size)) for t in build_pipeline(spec).transforms]
+
+    def injected():
+        pipe = build_pipeline(spec)
+        for t, (m, o) in zip(pipe.transforms, params):
+            t.affine_params = lambda g, bb, hw, m=m, o=o: (m.to(g.device), o.to(g.device))
+        return pipe
+
+    img, mask = (torch.from_numpy(a[:b]) for a in (fold.images, fold.masks))
+    want = injected()(torch.Generator(), img, mask)
+    got = injected()(torch.Generator(device=DEV), img.to(DEV), mask.to(DEV))
+    err = float((got[0].cpu() - want[0]).abs().max())
+    mask_eq = bool(torch.equal(got[1].cpu(), want[1]))
+    print(f"train2d warp hold {tuple(img.shape)}: masks equal {mask_eq}, image max err {err!r} "
+          f"(tolerance 1e-5)")
+    check(mask_eq and err <= 1e-5, "train2d: card and cpu warps disagree")
+
+
+def _step_times(cfg: dict, fold) -> dict:
+    """(d) warm ms per step at each batch with TF32 on and off, peak memory
+    and FLOPs; returns the warm trainer at batch 16 with TF32 on."""
+    aug = build_pipeline(cfg["data"]["augmentation"]["train"])
+    data = fold.device_cache(DEV)
+    out = {}
+    for bs in TIMED_BATCHES:
+        t = _trainer(cfg, DEV, batch_size=bs, augment_fn=aug)
+        state = t._train_state(max(1, len(fold) // bs))
+        plan = np.random.default_rng(SEED).integers(0, len(fold), size=(4, bs))
+        batches = list(t._batches(data, plan))
+        t.unet.train()
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            n = 10 if bs <= 16 else 4
+            for i in range(3):  # warm-up: cuDNN picks its algorithms per math mode
+                t._train_step(state, batches[i % 4], i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(n):
+                t._train_step(state, batches[i % 4], i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            out[(bs, tf32)] = (ms, torch.cuda.max_memory_allocated() / 2**30)
+        with FlopCounterMode(display=False) as fc:
+            t._train_step(state, batches[0], 0)
+        flops = fc.get_total_flops()
+        for tf32 in (True, False):
+            ms, peak = out[(bs, tf32)]
+            print(f"train2d step, batch {bs}, cuDNN TF32 {'on' if tf32 else 'off'}: "
+                  f"{ms!r} ms/step = {bs / ms * 1e3!r} slices/s; peak device memory "
+                  f"{peak!r} GiB; {flops / 1e9!r} GFLOP per step (FlopCounterMode, forward and "
+                  f"backward) = {flops / ms / 1e9!r} TFLOP/s, "
+                  f"{100 * flops / ms / 1e9 / (H100_TF32_TFLOPS if tf32 else H100_FP32_TFLOPS)!r}%"
+                  f" of the dense {'TF32' if tf32 else 'float32'} peak")
+        t.unet.eval()
+        if bs == TIMED_BATCHES[0]:
+            warm = t
+        del t, state, batches
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"train2d nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+def _epoch_times(cfg: dict, train, test) -> None:
+    aug = build_pipeline(cfg["data"]["augmentation"]["train"])
+    train, test = train.device_cache(DEV), test.device_cache(DEV)
+    times = {}
+    _trainer(cfg, DEV, n_epoch=1, augment_fn=aug).train(train)  # warm-up
+    for valid in (None, test):
+        t = _trainer(cfg, DEV, n_epoch=1, augment_fn=aug)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(train, valid_dataset=valid)
+        torch.cuda.synchronize()
+        times[valid is not None] = time.perf_counter() - t0
+    print(f"train2d epoch of {len(train)} slices at batch {cfg['train']['batch_size']}, TF32 on: "
+          f"{times[False]!r} s without validation, {times[True]!r} s with validation of "
+          f"{len(test)} slices")
+
+
+TRAIN_RANGES = ("augment", "loss", "dropout", "Optimizer.step#Adam.step")
+
+
+def _train_profile(t: UNet2D, fold) -> None:
+    """(e) one warm step (batch 16, TF32 on) under torch.profiler; the warp
+    is the ``augment`` range."""
+    data = fold.device_cache(DEV)
+    state = t._train_state(max(1, len(fold) // t.batch_size))
+    batch = next(t._batches(data, np.arange(t.batch_size)[None]))
+    t.unet.train()
+    for i in range(3):
+        t._train_step(state, batch, i)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._train_step(state, batch, 3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t.unet.eval()
+    print(_profile_summary(prof, wall_ms, f"train2d profile (one warm step, batch {t.batch_size}, "
+                           f"TF32 on)", OP_GROUPS_TRAIN, TRAIN_RANGES))
+
+
+def phase_train2d(work: str) -> None:
+    cfg = load_train_cfg(work)
+    t0 = time.perf_counter()
+    folds = _fold_data(cfg)
+    print(f"train2d data: {len(folds)} folds of {TRAIN_FOLD[0]} + {TEST_FOLD[0]} synthetic "
+          f"slices at {cfg['data']['size']}^2 in {time.perf_counter() - t0!r} s")
+    _train_kfold(cfg, folds)
+    _train_hold(cfg, folds[0][0])
+    _warp_hold(cfg, folds[0][0])
+    warm = _step_times(cfg, folds[0][0])
+    _epoch_times(cfg, *folds[0])
+    _train_profile(warm, folds[0][0])
 
 
 def main() -> None:
@@ -562,6 +861,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as work:
         phase_3d(rng, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train2d_") as work:
+        phase_train2d(work)
     kernels = [{
         "name": "edt_minplus_pass", "route": "cuda",
         "source": "ich_tpu_torch/csrc/edt_minplus.cu",

@@ -1,0 +1,88 @@
+"""Synthetic head-CT-like slices for tests and the on-card smoke run,
+copied from ``ich_tpu/data/synthetic.py`` (``_lesion_mask_2d`` and
+``synthetic_ich_slices``; importing ``ich_tpu.data`` imports jax): a
+skull-like bright ring, brain-tissue texture, and ellipsoidal hyperdense
+"hemorrhage" lesions with matching masks, the same arrays for the same
+seed as the JAX package's."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ich_tpu_torch.data.core import SliceDataset2D
+
+
+def _lesion_mask_2d(
+    rng: np.random.Generator, h: int, w: int, max_lesions: int = 2
+) -> np.ndarray:
+    mask = np.zeros((h, w), dtype=np.float32)
+    n = rng.integers(0, max_lesions + 1)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(n):
+        cy, cx = rng.uniform(0.25 * h, 0.75 * h), rng.uniform(0.25 * w, 0.75 * w)
+        ry, rx = rng.uniform(0.03, 0.12) * h, rng.uniform(0.03, 0.12) * w
+        theta = rng.uniform(0, np.pi)
+        ys, xs = yy - cy, xx - cx
+        yr = ys * np.cos(theta) + xs * np.sin(theta)
+        xr = -ys * np.sin(theta) + xs * np.cos(theta)
+        mask[(yr / ry) ** 2 + (xr / rx) ** 2 <= 1.0] = 1.0
+    return mask
+
+
+def synthetic_ich_slices(
+    n_slices: int = 64,
+    size: int = 64,
+    n_volumes: int = 8,
+    seed: int = 0,
+    positive_frac: float = 0.6,
+    lesion_intensity: float = 0.75,
+    lesion_noise: float = 0.05,
+    texture_amp: float = 0.0,
+) -> SliceDataset2D:
+    """Windowed-intensity [0,1] slices with lesions; returns SliceDataset2D.
+
+    ``texture_amp > 0`` superimposes smooth per-patient low-frequency
+    texture (gyri-like structure shared by all slices of a volume), and a
+    ``lesion_intensity`` near the 0.35 tissue mean makes lesions
+    low-contrast."""
+    rng = np.random.default_rng(seed)
+    h = w = size
+    yy, xx = np.mgrid[0:h, 0:w]
+    r = np.sqrt((yy - h / 2) ** 2 + (xx - w / 2) ** 2)
+    brain = (r < 0.42 * h).astype(np.float32)
+    skull = ((r >= 0.42 * h) & (r < 0.48 * h)).astype(np.float32)
+
+    images = np.empty((n_slices, h, w), dtype=np.float32)
+    masks = np.empty((n_slices, h, w), dtype=np.float32)
+    vol_ids = np.repeat(np.arange(n_volumes), int(np.ceil(n_slices / n_volumes)))[:n_slices]
+    slice_nbrs = np.concatenate(
+        [np.arange((vol_ids == v).sum()) for v in range(n_volumes)]
+    )[:n_slices]
+    textures = {}
+    if texture_amp > 0.0:
+        for v in range(n_volumes):
+            t = np.zeros((h, w), dtype=np.float32)
+            for _ in range(4):
+                fy, fx = rng.uniform(2.0, 7.0, size=2)
+                ph = rng.uniform(0, 2 * np.pi, size=2)
+                t += np.sin(2 * np.pi * fy * yy / h + ph[0]) * np.sin(
+                    2 * np.pi * fx * xx / w + ph[1]
+                )
+            textures[v] = texture_amp * (t / 4.0).astype(np.float32)
+    for i in range(n_slices):
+        tissue = 0.35 + 0.08 * rng.standard_normal((h, w)).astype(np.float32)
+        if texture_amp > 0.0:
+            tissue = tissue + textures[int(vol_ids[i])]
+        if rng.uniform() < positive_frac:
+            lesion = _lesion_mask_2d(rng, h, w) * brain
+        else:
+            lesion = np.zeros((h, w), dtype=np.float32)
+        img = tissue * brain + 1.0 * skull
+        img = np.where(
+            lesion > 0,
+            lesion_intensity + lesion_noise * rng.standard_normal((h, w)),
+            img,
+        )
+        images[i] = np.clip(img, 0.0, 1.0)
+        masks[i] = lesion
+    return SliceDataset2D(images, masks, vol_ids, slice_nbrs)

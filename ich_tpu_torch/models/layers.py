@@ -13,6 +13,12 @@ normalisation in float32, one rounding to bf16. The JAX package's
 ``FlatGroupNorm`` rounds its folded scale and shift to bf16 first and
 normalises in bf16: one rounding away (held at 2e-2 on probabilities by
 ``tests/test_torch_segment_volume_3d.py``).
+
+Training follows flax, not torch's defaults: a fresh conv or transposed
+conv draws its kernel from flax's ``lecun_normal`` (truncated normal, fan
+in) with a zero bias; BatchNorm's running variance takes the biased batch
+variance; dropout draws its mask from a generator that the trainer sets
+for each step, so that a resumed run replays the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -24,6 +30,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+# flax's variance_scaling(1.0, "fan_in", "truncated_normal"): a normal cut at
+# two standard deviations, rescaled so that the kept part has std sqrt(1/fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
+    """Fill ``weight`` in place as flax's ``lecun_normal`` does."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def _flax_reset(m: nn.Module, fan_in: int) -> None:
+    lecun_normal_(m.weight, fan_in)
+    if m.bias is not None:
+        nn.init.zeros_(m.bias)
+
+
 def _params_as(m: nn.Module, x: torch.Tensor):
     """``m``'s weight and bias in ``x``'s dtype (no copy when they match)."""
     bias = None if m.bias is None else m.bias.to(x.dtype)
@@ -31,22 +55,36 @@ def _params_as(m: nn.Module, x: torch.Tensor):
 
 
 class Conv2d(nn.Conv2d):
+    def reset_parameters(self) -> None:
+        _flax_reset(self, self.weight[0].numel())  # kernel O I *k: fan in I * prod(k)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, *_params_as(self, x))
 
 
 class Conv3d(nn.Conv3d):
+    def reset_parameters(self) -> None:
+        _flax_reset(self, self.weight[0].numel())  # kernel O I *k: fan in I * prod(k)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, *_params_as(self, x))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
+    def reset_parameters(self) -> None:
+        # kernel I O *k; flax's (*k, I, O) kernel has fan in I * prod(k)
+        _flax_reset(self, self.weight.shape[0] * self.weight[0, 0].numel())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose2d(x, *_params_as(self, x), self.stride, self.padding,
                                   self.output_padding, self.groups, self.dilation)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
+    def reset_parameters(self) -> None:
+        # kernel I O *k; flax's (*k, I, O) kernel has fan in I * prod(k)
+        _flax_reset(self, self.weight.shape[0] * self.weight[0, 0].numel())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose3d(x, *_params_as(self, x), self.stride, self.padding,
                                   self.output_padding, self.groups, self.dilation)
@@ -57,9 +95,63 @@ class GroupNorm(nn.GroupNorm):
         return F.group_norm(x, self.num_groups, *_params_as(self, x), self.eps)
 
 
+def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Eval: the running statistics. Train: the batch's biased statistics,
+    and the running averages updated with momentum as flax does
+    (``ra = 0.9 ra + 0.1 batch``), the variance's with the biased batch
+    variance ``v``. torch's own update takes the unbiased ``k v``,
+    ``k = n / (n - 1)``; rescaling its result per channel,
+    ``ra = torch_ra / k + (1 - m)(1 - 1/k) ra_old``, gives flax's update
+    without a second pass over the activations."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    k = x.numel() / x.shape[1]
+    k = k / (k - 1.0)
+    m = bn.momentum
+    # batch_norm's backward keeps the variance buffer it was given: hand it
+    # a copy, so that the buffer's in-place update below leaves it intact
+    torch_ra = bn.running_var.clone()
+    out = F.batch_norm(x, bn.running_mean, torch_ra, bn.weight, bn.bias, True, m, bn.eps)
+    with torch.no_grad():
+        bn.running_var.mul_((1.0 - m) * (1.0 - 1.0 / k)).add_(torch_ra, alpha=1.0 / k)
+    return out
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    forward = _batch_norm_forward
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    forward = _batch_norm_forward
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax's ``nn.Dropout``: keep with probability
+    ``1 - p`` and scale by ``1 / (1 - p)``) whose mask comes from
+    ``self.generator``; the trainer sets one seeded generator per step
+    (``None`` draws from torch's default generator)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        with torch.profiler.record_function("dropout"):
+            mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+            return x * mask.div_(keep)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
 _CONV = {2: Conv2d, 3: Conv3d}
 _CONVT = {2: ConvTranspose2d, 3: ConvTranspose3d}
-_BN = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+_BN = {2: BatchNorm2d, 3: BatchNorm3d}
 
 
 def normalize_p_dropout(p_dropout: Union[float, Sequence[float]], depth: int) -> Tuple[float, ...]:
@@ -96,7 +188,7 @@ class ConvBlock(nn.Module):
         self.bn1 = make_norm(norm, mid, ndim)
         self.conv2 = _CONV[ndim](mid, out_channels, 3, padding=1)
         self.bn2 = make_norm(norm, out_channels, ndim)
-        self.dropout = nn.Dropout(p_dropout) if p_dropout > 0.0 else nn.Identity()
+        self.dropout = Dropout(p_dropout) if p_dropout > 0.0 else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))

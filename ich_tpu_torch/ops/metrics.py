@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -81,3 +82,10 @@ def dice_all_and_positive(
     n_pos = torch.clamp(torch.sum(pos), min=1.0)
     d_pos = torch.sum(vol_dice * pos) / n_pos
     return d_all, d_pos
+
+
+def fold_aggregate(values: np.ndarray) -> Tuple[float, float]:
+    """Mean ± 1.96σ across folds (reference
+    ``scripts/unet-2D/UNet2D_scripts.py:203-207``)."""
+    v = np.asarray(values, dtype=np.float64)
+    return float(v.mean()), float(1.96 * v.std())

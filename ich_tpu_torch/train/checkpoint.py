@@ -1,13 +1,26 @@
-"""Weights export (counterpart of ``save_params``/``load_params`` in
-:mod:`ich_tpu.train.checkpoint`): a module's ``state_dict`` through
-``torch.save``, read back with ``torch.load(weights_only=True)``."""
+"""Checkpoints, weights export and cross-task weight transfer (counterpart
+of :mod:`ich_tpu.train.checkpoint`).
+
+- ``save_params`` / ``load_params``: a module's ``state_dict`` through
+  ``torch.save``, read back with ``torch.load(weights_only=True)``.
+- ``save_checkpoint`` / ``load_checkpoint``: one file holding ``{epoch,
+  model, optimizer, step, history}``, written atomically (``fsync``, then
+  ``os.replace``); a missing file means a fresh start, the reference's
+  resume (``UNet2D.py:109-121``).
+- ``transfer_weights``: the reference's key-intersection ``state_dict``
+  update (``UNet2D.py:316-337``) with strict shapes, which raises when
+  nothing matches.
+"""
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
@@ -19,3 +32,50 @@ def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
 def load_params(path: str) -> Dict[str, torch.Tensor]:
     """Read a ``state_dict`` written by :func:`save_params` onto the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_checkpoint(path: str, state: Dict[str, Any], epoch: int, history: list) -> None:
+    """Atomic single-file checkpoint of ``state`` (``{"model", "optimizer",
+    "step"}``, as :meth:`ich_tpu_torch.train.state.TrainState.state_dict`
+    gives it), the number of finished epochs and the history rows."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {"epoch": int(epoch), **state, "history": history}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())  # the rename only helps once the data is durable
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Optional[Tuple[Dict[str, Any], int, list]]:
+    """(state, epoch, history) from :func:`save_checkpoint`'s file, tensors
+    on the CPU, or None if there is no file."""
+    if not os.path.exists(path):
+        return None
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k: payload[k] for k in ("model", "optimizer", "step")}
+    return state, int(payload["epoch"]), payload["history"]
+
+
+def transfer_weights(
+    target: Dict[str, torch.Tensor], source: Dict[str, torch.Tensor], verbose: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Copy every entry of ``source`` whose key exists in ``target`` with
+    the same shape; return (new target, transferred keys). Other keys are
+    left as they are. A transfer that moves nothing is a config error (for
+    example an encoder and a net built with different widths) and raises."""
+    new = dict(target)
+    moved = [k for k, v in source.items()
+             if k in target and tuple(target[k].shape) == tuple(v.shape)]
+    for k in moved:
+        new[k] = source[k]
+    if verbose:
+        logger.info("%d matching weight keys found on %d to be transferred (%d target keys).",
+                    len(moved), len(source), len(target))
+    if not moved and source:
+        raise ValueError(
+            f"transfer_weights: none of the {len(source)} source keys matched the target "
+            f"(by key and shape) — the architectures are incompatible; check "
+            f"depth/top_filter/midchannels_factor.")
+    return new, moved

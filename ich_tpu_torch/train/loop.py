@@ -1,0 +1,93 @@
+"""Host-side epoch loop with crash-resume (counterpart of
+:mod:`ich_tpu.train.loop`).
+
+Resume from the checkpoint, one log line per epoch, a checkpoint every
+``checkpoint_freq`` epochs, and the SIGTERM stop after a checkpoint. The
+step losses stay on the device and are fetched once per epoch.
+
+Each step gets a seed derived from ``(seed, epoch, batch)``, the
+counterpart of the JAX loop's ``fold_in(fold_in(key, epoch), batch)``: the
+step's augmentation and dropout draw from a generator seeded with it, so a
+resumed run replays the uninterrupted one.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from datetime import timedelta
+from typing import Any, Callable, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ich_tpu_torch.train import checkpoint as ckpt
+from ich_tpu_torch.train.state import TrainState
+from ich_tpu_torch.utils import preemption
+
+logger = logging.getLogger(__name__)
+
+
+def step_seed(seed: int, epoch: int, batch: int) -> int:
+    """A 63-bit generator seed for one step, collision-free in practice for
+    any epoch length."""
+    return int(np.random.SeedSequence((seed, epoch, batch)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def fit(
+    state: TrainState,
+    train_step: Callable[[TrainState, Any, int], Any],  # (state, batch, seed) -> loss(es)
+    batches_fn: Callable[[int], Iterable],  # epoch -> iterable of batches
+    n_epoch: int,
+    epoch_hook: Callable[[TrainState, int, Optional[np.ndarray], float], list],
+    seed: int = 0,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_freq: int = 10,
+    name: str = "model",
+) -> Tuple[list, float]:
+    """Run the training loop on ``state`` in place; returns (history,
+    wall_time).
+
+    ``train_step`` returns a 0-d loss tensor or a tuple of them; their
+    epoch means are taken on the device and fetched once.
+    ``epoch_hook(state, epoch, mean_losses, epoch_time) -> history_row``
+    owns validation and the epoch's log line; ``mean_losses`` is a numpy
+    scalar or vector (None for an epoch without batches).
+    """
+    preemption.install()  # so that the requested() poll below can fire
+    n_epoch_finished, history = 0, []
+    if checkpoint_path:
+        restored = ckpt.load_checkpoint(checkpoint_path)
+        if restored is not None:
+            saved_state, n_epoch_finished, history = restored
+            state.load_state_dict(saved_state)
+            logger.info("Checkpoint loaded with %d epoch finished.", n_epoch_finished)
+        else:
+            logger.info("No Checkpoint found. Training from beginning.")
+
+    logger.info("Start training the %s.", name)
+    start_time = time.time()
+
+    for epoch in range(n_epoch_finished, n_epoch):
+        losses, epoch_start = [], time.time()
+        for b, batch in enumerate(batches_fn(epoch)):
+            loss = train_step(state, batch, step_seed(seed, epoch, b))
+            losses.append(torch.stack(loss) if isinstance(loss, (tuple, list)) else loss)
+        mean_losses = torch.stack(losses).mean(dim=0).cpu().numpy() if losses else None
+
+        history.append(epoch_hook(state, epoch, mean_losses, time.time() - epoch_start))
+        saved = False
+        if checkpoint_path and (epoch + 1) % checkpoint_freq == 0:
+            ckpt.save_checkpoint(checkpoint_path, state.state_dict(), epoch + 1, history)
+            logger.info("\tCheckpoint saved.")
+            saved = True
+        if preemption.requested_global():
+            if checkpoint_path and not saved:
+                ckpt.save_checkpoint(checkpoint_path, state.state_dict(), epoch + 1, history)
+            logger.warning("Preemption requested: checkpointed after epoch %d, stopping.",
+                           epoch + 1)
+            break
+
+    wall = time.time() - start_time
+    logger.info("Finished training %s in %s", name, timedelta(seconds=int(wall)))
+    return history, wall

@@ -1,26 +1,57 @@
-"""2.5D U-Net serving (counterpart of the serving subset of
+"""2.5D U-Net segmentation trainer (counterpart of
 :class:`ich_tpu.train.segmentation2d.UNet2D`).
+
+``train``: the host permutation of each epoch is replayed from
+``np.random.default_rng(seed)`` (so a resumed run sees the same batches),
+batches are gathered on the device from a ``device_cache``d dataset, and
+each step augments on the device, runs the net in train mode, takes the
+loss, backward and an Adam step, all from a generator seeded per step
+(:func:`ich_tpu_torch.train.loop.step_seed`). ``evaluate`` counts each
+slice's TN/FP/FN/TP on the device and writes the JAX package's CSVs (the
+columns, index and row order of pandas' ``to_csv``) and ``<vol>/<slice>.bmp``
+predictions. The net is in eval mode except while it trains.
 
 ``segment_volume`` runs one whole volume on the device, step for step as
 the JAX package's ``_segvol_body``: rot90 -> window -> linear resize to the
 net's input -> the net over slice batches -> threshold at 0.5 -> nearest
 resize back (in the rotated frame) -> rot90 back -> uint8 x255.
 ``segment_volumes`` keeps up to ``pipeline_depth`` volumes queued on the
-device before it fetches the oldest result. Training and evaluation are not
-ported yet.
+device before it fetches the oldest result. The multi-device branch of
+``segment_volumes`` and data-parallel training are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+import csv
+import logging
+import os
+import time
+from datetime import timedelta
+from functools import partial
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ich_tpu_torch.data import nifti
+from ich_tpu_torch.data.bmp import save_bmp_gray
+from ich_tpu_torch.data.core import SliceDataset2D, batch_indices
+from ich_tpu_torch.models.layers import Dropout
 from ich_tpu_torch.ops import ct
+from ich_tpu_torch.ops import losses as _losses  # noqa: F401  (registers LOSSES)
+from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
 from ich_tpu_torch.train import checkpoint as ckpt
+from ich_tpu_torch.train.loop import fit
+from ich_tpu_torch.train.state import TrainState, make_optimizer, make_schedule
+from ich_tpu_torch.utils.config import LOSSES, TRAINERS
+from ich_tpu_torch.utils.logging import print_progressbar, save_json
+from ich_tpu_torch.utils.pipeline import fetch_pipelined
+
+logger = logging.getLogger(__name__)
+
+SLICE_COLUMNS = ("volID", "slice", "label", "TP", "TN", "FP", "FN", "pred_fn", "Dice")
+VOLUME_COLUMNS = ("label", "TP", "TN", "FP", "FN", "Dice")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -31,14 +62,283 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-class UNet2D:
-    """Score (H, W, Z) volumes slice-wise with a 2D U-Net."""
+def _resolve_loss(loss_fn, loss_fn_kwargs) -> Callable:
+    if isinstance(loss_fn, str):
+        return LOSSES.build(loss_fn, **(loss_fn_kwargs or {}))
+    if callable(loss_fn) and loss_fn_kwargs:
+        return partial(loss_fn, **loss_fn_kwargs)
+    return loss_fn
 
-    def __init__(self, unet: nn.Module, batch_size: int = 16,
-                 device: str | torch.device = "cuda"):
+
+def _with_channels(*xs: torch.Tensor):
+    """(B, H, W) tensors get a channel axis: (B, H, W, 1)."""
+    return tuple(x[..., None] if x.dim() == 3 else x for x in xs)
+
+
+def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> None:
+    for m in net.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+
+
+def write_csv(path: str, header: Sequence[str], rows: Iterable[Sequence]) -> None:
+    """A header row, then ``rows``; numbers as ``str`` gives them, which is
+    how pandas' ``to_csv`` writes ints and float64s."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+
+
+class UNet2D:
+    """Train and evaluate a 2D segmentation network slice-wise; score (H,
+    W, Z) volumes. The constructor takes the JAX trainer's arguments but
+    ``mesh``; ``num_workers`` is accepted for the configs and unused (there
+    are no host workers)."""
+
+    def __init__(
+        self,
+        unet: nn.Module,
+        n_epoch: int = 150,
+        batch_size: int = 16,
+        lr: float = 1e-3,
+        lr_scheduler: str = "ExponentialLR",
+        lr_scheduler_kwargs: Optional[dict] = None,
+        loss_fn="BinaryDiceLoss",
+        loss_fn_kwargs: Optional[dict] = None,
+        weight_decay: float = 1e-6,
+        augment_fn: Optional[Callable] = None,
+        seed: int = 0,
+        print_progress: bool = False,
+        checkpoint_freq: int = 10,
+        num_workers: int = 0,
+        device: str | torch.device = "cuda",
+    ):
         self.device = resolve_device(device)
         self.unet = unet.to(self.device).eval()
+        self.n_epoch = n_epoch
         self.batch_size = batch_size
+        self.lr = lr
+        self.lr_scheduler = lr_scheduler
+        self.lr_scheduler_kwargs = dict(lr_scheduler_kwargs or {"gamma": 0.95})
+        self.loss = _resolve_loss(loss_fn, dict(loss_fn_kwargs or {"reduction": "mean"}))
+        self.weight_decay = weight_decay
+        self.augment_fn = augment_fn
+        self.seed = seed
+        self.print_progress = print_progress
+        self.checkpoint_freq = checkpoint_freq
+
+        self.state: Optional[TrainState] = None
+        self._state_steps: Optional[int] = None  # steps_per_epoch of the schedule
+        self.outputs = {
+            "train": {"time": None, "evolution": None},
+            "eval": {"time": None, "dice": {"all": None, "positive": None}},
+        }
+
+    # -- training -------------------------------------------------------------
+
+    def _train_state(self, steps_per_epoch: int) -> TrainState:
+        """The optimizer and schedule, built anew (the step count kept) when
+        the epoch length changes: the schedules decay per epoch."""
+        if self.state is None or self._state_steps != steps_per_epoch:
+            self.state = TrainState(
+                self.unet,
+                make_optimizer(self.unet.parameters(), self.lr, weight_decay=self.weight_decay),
+                make_schedule(self.lr_scheduler, self.lr, steps_per_epoch,
+                              **self.lr_scheduler_kwargs),
+                self.state.step if self.state is not None else 0,
+            )
+            self._state_steps = steps_per_epoch
+        return self.state
+
+    def _to_device(self, arr) -> torch.Tensor:
+        """A host array or CPU tensor on the device."""
+        t = torch.as_tensor(arr)
+        if self.device.type == "cuda":
+            # pinned + non_blocking: the copy does not wait for queued work
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _batches(self, dataset: SliceDataset2D, plan: np.ndarray):
+        """(images, masks) per row of the (steps, batch) index ``plan``, on
+        the device: gathered there from a device-cached dataset, else
+        gathered on the host and copied."""
+        images, masks = dataset.images, dataset.masks
+        if isinstance(images, torch.Tensor):
+            plan_dev = self._to_device(plan.astype(np.int64))
+            for b in range(len(plan)):
+                yield images.index_select(0, plan_dev[b]), masks.index_select(0, plan_dev[b])
+        else:
+            for idx in plan:
+                yield self._to_device(images[idx]), self._to_device(masks[idx])
+
+    def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
+        images, masks = _with_channels(*batch)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        if self.augment_fn is not None:
+            with torch.profiler.record_function("augment"):
+                images, masks = self.augment_fn(gen, images, masks)
+        _set_dropout_generator(state.model, gen)
+        pred = state.model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        with torch.profiler.record_function("loss"):
+            loss = self.loss(pred, masks)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    def train(
+        self,
+        dataset: SliceDataset2D,
+        valid_dataset: Optional[SliceDataset2D] = None,
+        checkpoint_path: Optional[str] = None,
+    ) -> None:
+        n = len(dataset)
+        steps_per_epoch = max(1, int(np.ceil(n / self.batch_size)))
+        state = self._train_state(steps_per_epoch)
+
+        host_rng = np.random.default_rng(self.seed)
+        drawn = [0]  # permutations consumed so far
+
+        def batches_fn(epoch):
+            # replay the host RNG so that shuffles stay the same across a
+            # resume: epoch e always takes the (e+1)-th permutation of the seed
+            while drawn[0] < epoch:
+                host_rng.permutation(n)
+                drawn[0] += 1
+            drawn[0] += 1
+            plan = np.stack(list(batch_indices(n, self.batch_size, shuffle=True, rng=host_rng)))
+            self.unet.train()
+            for b, batch in enumerate(self._batches(dataset, plan)):
+                if self.print_progress:
+                    print_progressbar(b, steps_per_epoch, name="\t\tTrain Batch", erase=True)
+                yield batch
+
+        def epoch_hook(state, epoch, mean_losses, epoch_time):
+            mean_loss = float(mean_losses) if mean_losses is not None else 0.0
+            valid_str = ""
+            v_all = v_pos = None
+            if valid_dataset is not None:
+                self.evaluate(valid_dataset, print_to_logger=False, save_path=None)
+                v_all = self.outputs["eval"]["dice"]["all"]
+                v_pos = self.outputs["eval"]["dice"]["positive"]
+                valid_str = (
+                    f"| Valid Dice: {v_all:.5f} | Valid Dice (Positive Slices): {v_pos:.5f} "
+                )
+            logger.info(
+                "\t| Epoch: %03d/%03d | Train time: %s | Train Loss: %.6f %s|",
+                epoch + 1, self.n_epoch,
+                timedelta(seconds=int(epoch_time)), mean_loss, valid_str,
+            )
+            return [epoch + 1, mean_loss, v_all, v_pos]
+
+        try:
+            history, wall = fit(
+                state, self._train_step, batches_fn, self.n_epoch, epoch_hook, seed=self.seed,
+                checkpoint_path=checkpoint_path, checkpoint_freq=self.checkpoint_freq,
+                name="U-Net 2.5D",
+            )
+        finally:
+            self.unet.eval()
+            _set_dropout_generator(self.unet, None)
+        self.outputs["train"]["time"] = wall
+        self.outputs["train"]["evolution"] = history
+
+    # -- evaluation -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def _eval_batch(self, images: torch.Tensor, masks: torch.Tensor, return_pred: bool):
+        """(5, B) float32 rows TN, FP, FN, TP, label, and the (B, H, W)
+        uint8 {0, 1} prediction if ``return_pred``."""
+        images, masks = _with_channels(images, masks)
+        pred = self.unet(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        pred_bin = (pred >= 0.5).to(torch.float32)
+        tn, fp, fn, tp = batch_binary_confusion_matrix(pred_bin, masks)
+        label = (masks.reshape(masks.shape[0], -1).amax(dim=1) > 0).to(torch.float32)
+        counts = torch.stack([tn, fp, fn, tp, label])
+        if return_pred:
+            return counts, pred_bin[..., 0].to(torch.uint8)
+        return (counts,)
+
+    def evaluate(
+        self,
+        dataset: SliceDataset2D,
+        print_to_logger: bool = True,
+        save_path: Optional[str] = None,
+    ) -> Dict[str, np.ndarray]:
+        """Per-slice confusion counts on the device; slice and volume Dice;
+        with ``save_path``, ``slice_prediction_scores.csv``,
+        ``volume_prediction_scores.csv`` and ``<vol>/<slice>.bmp`` as the
+        JAX package (and the reference, ``UNet2D.py:183-270``) writes them.
+        Fills ``outputs["eval"]`` (the positive Dice is NaN when no volume
+        is positive, as pandas' mean of nothing) and returns the per-slice
+        rows as a dict of numpy columns (``SLICE_COLUMNS``)."""
+        n = len(dataset)
+        start_time = time.time()
+        if print_to_logger:
+            logger.info("Start evaluating the U-Net 2.5D.")
+        was_training = self.unet.training
+        self.unet.eval()
+        return_pred = save_path is not None
+        # every batch has batch_size rows; the wrapped tail's duplicates are
+        # dropped below
+        plan = np.stack(list(batch_indices(n, self.batch_size, shuffle=False, pad_wrap=True)))
+        fetched = fetch_pipelined(
+            (self._eval_batch(x, y, return_pred) for x, y in self._batches(dataset, plan)),
+            depth=8, fetch=lambda out: tuple(o.cpu().numpy() for o in out))
+
+        rows = {k: [] for k in SLICE_COLUMNS[:-1]}
+        for b, (idx, out) in enumerate(zip(plan, fetched)):
+            valid = min(len(idx), n - b * self.batch_size)
+            tn, fp, fn, tp, label = out[0]
+            for j in range(valid):
+                vid, snb = int(dataset.vol_ids[idx[j]]), int(dataset.slice_nbrs[idx[j]])
+                pred_fn = "-"
+                if return_pred:
+                    os.makedirs(os.path.join(save_path, f"{vid}"), exist_ok=True)
+                    pred_fn = f"{vid}/{snb}.bmp"
+                    save_bmp_gray(os.path.join(save_path, pred_fn), out[1][j] * np.uint8(255))
+                rows["volID"].append(vid)
+                rows["slice"].append(snb)
+                rows["label"].append(int(label[j]))
+                rows["TP"].append(float(tp[j]))
+                rows["TN"].append(float(tn[j]))
+                rows["FP"].append(float(fp[j]))
+                rows["FN"].append(float(fn[j]))
+                rows["pred_fn"].append(pred_fn)
+            if self.print_progress:
+                print_progressbar(b, len(plan), name="\t\tEvaluation Batch", erase=True)
+        self.unet.train(was_training)
+
+        cols = {k: np.asarray(v, dtype=np.float64 if k in ("TP", "TN", "FP", "FN") else None)
+                for k, v in rows.items()}
+        cols["Dice"] = dice_from_counts(cols["TP"], cols["FP"], cols["FN"])
+        vol_ids, inv = np.unique(cols["volID"], return_inverse=True)
+        vol = {"label": np.zeros(len(vol_ids), np.int64)}
+        np.maximum.at(vol["label"], inv, cols["label"])
+        for k in ("TP", "TN", "FP", "FN"):
+            vol[k] = np.bincount(inv, weights=cols[k], minlength=len(vol_ids))
+        vol["Dice"] = dice_from_counts(vol["TP"], vol["FP"], vol["FN"])
+        if save_path:
+            write_csv(os.path.join(save_path, "slice_prediction_scores.csv"),
+                      ("",) + SLICE_COLUMNS,
+                      ([i] + [cols[c][i].item() for c in SLICE_COLUMNS] for i in range(n)))
+            write_csv(os.path.join(save_path, "volume_prediction_scores.csv"),
+                      ("volID",) + VOLUME_COLUMNS,
+                      ([v.item()] + [vol[c][i].item() for c in VOLUME_COLUMNS]
+                       for i, v in enumerate(vol_ids)))
+
+        pos = vol["label"] == 1
+        avg_all = float(np.mean(vol["Dice"]))
+        avg_ich = float(np.mean(vol["Dice"][pos])) if pos.any() else float("nan")
+        self.outputs["eval"]["time"] = time.time() - start_time
+        self.outputs["eval"]["dice"] = {"all": avg_all, "positive": avg_ich}
+        if print_to_logger:
+            logger.info("Evaluation time: %s", timedelta(seconds=int(self.outputs["eval"]["time"])))
+            logger.info("Evaluation Dice: %.5f.", avg_all)
+            logger.info("Evaluation Dice (Positive only): %.5f.", avg_ich)
+        return cols
 
     # -- full-volume inference ----------------------------------------------
 
@@ -70,9 +370,7 @@ class UNet2D:
         z_pad = -(-z // self.batch_size) * self.batch_size
         vol = torch.zeros((h, w, z_pad), dtype=torch.float32)
         vol[:, :, :z] = torch.from_numpy(vol_data)
-        if self.device.type == "cuda":
-            # pinned + non_blocking: the copy does not wait for queued work
-            vol = vol.pin_memory().to(self.device, non_blocking=True)
+        vol = self._to_device(vol)
         with torch.inference_mode():
             return self._segment(vol, tuple(input_size), window), z
 
@@ -142,3 +440,20 @@ class UNet2D:
 
     def load_model(self, import_fn: str) -> None:
         self.unet.load_state_dict(ckpt.load_params(import_fn))
+
+    def transfer_weights(self, source_state_dict: Dict[str, torch.Tensor],
+                         verbose: bool = False) -> List[str]:
+        """Key-intersection transfer from another model's ``state_dict``
+        (reference ``UNet2D.py:316-337``); returns the keys moved. The port's
+        net holds its parameters from construction, so the transfer applies
+        at once where the JAX trainer defers it until its state exists."""
+        src = {k: torch.as_tensor(v) for k, v in source_state_dict.items()}
+        new, moved = ckpt.transfer_weights(self.unet.state_dict(), src, verbose)
+        self.unet.load_state_dict(new)
+        return moved
+
+    def save_outputs(self, export_fn: str) -> None:
+        save_json(export_fn, self.outputs)
+
+
+TRAINERS.add("UNet2D", UNet2D)

@@ -12,7 +12,6 @@ is not ported yet, nor the multi-device branch of ``segment_volumes``.
 
 from __future__ import annotations
 
-import csv
 import logging
 import os
 import time
@@ -31,7 +30,7 @@ from ich_tpu_torch.ops.metrics import (
     iou_from_counts,
 )
 from ich_tpu_torch.ops.sliding_window import sliding_window_inference
-from ich_tpu_torch.train.segmentation2d import UNet2D
+from ich_tpu_torch.train.segmentation2d import UNet2D, write_csv
 from ich_tpu_torch.utils.pipeline import fetch_pipelined
 
 logger = logging.getLogger(__name__)
@@ -193,12 +192,9 @@ class UNet3D(UNet2D):
         }
         if save_path:
             os.makedirs(save_path, exist_ok=True)
-            with open(os.path.join(save_path, "volume_prediction_scores.csv"), "w",
-                      newline="") as f:
-                w = csv.writer(f)
-                w.writerow(("",) + CSV_COLUMNS)
-                for i in range(len(tp)):
-                    w.writerow([i] + [rows[c][i].item() for c in CSV_COLUMNS])
+            write_csv(os.path.join(save_path, "volume_prediction_scores.csv"),
+                      ("",) + CSV_COLUMNS,
+                      ([i] + [rows[c][i].item() for c in CSV_COLUMNS] for i in range(len(tp))))
         pos = rows["label"] == 1
         self.outputs["eval"]["time"] = time.time() - start_time
         for key, col in (("dice", "Dice"), ("iou", "IoU")):

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from ich_tpu_torch.data.synthetic import synthetic_ich_slices
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import edt
+from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
 
@@ -69,3 +71,51 @@ def test_segment_volume_3d_card_matches_cpu(card, dtype):
     got = UNet3D(net, patch_size=(16, 16, 16), device="cuda").segment_volume(vol, **kw)
     assert got.shape == vol.shape and got.dtype == np.uint8
     assert np.mean(got == want) >= (0.999 if dtype == torch.float32 else 0.99)
+
+
+def test_augment_warp_card_matches_cpu(card):
+    """The config's Compose with one set of (m, o) drawn on the CPU and
+    injected: masks equal, images within 1e-5."""
+    spec = {"Translate": {}, "Rotate": {}, "Scale": {}, "HFlip": {}}
+    gen = torch.Generator().manual_seed(0)
+    params = [t.affine_params(gen, 16, (64, 64)) for t in T.build_pipeline(spec).transforms]
+
+    def injected():
+        pipe = T.build_pipeline(spec)
+        for t, (m, o) in zip(pipe.transforms, params):
+            t.affine_params = lambda g, b, hw, m=m, o=o: (m.to(g.device), o.to(g.device))
+        return pipe
+
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.uniform(size=(16, 64, 64)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(16, 64, 64)) > 0.7).astype(np.float32))
+    want = injected()(torch.Generator(), img, mask)
+    got = injected()(torch.Generator(device="cuda"), img.cuda(), mask.cuda())
+    assert torch.equal(got[1].cpu(), want[1])
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-5
+
+
+def test_train_steps_card_match_cpu(card):
+    """Two train steps (d3 f8, 16 slices at 32^2, batch 8, dropout and
+    augmentation off, TF32 off) from the same weights: epoch loss within
+    rtol 1e-4; 99% of the weights within 1e-4 (Adam's first step is about
+    lr * sign(g), so weights with a rounding-noise gradient, such as the
+    biases of convs feeding a BatchNorm, may differ by up to 2 lr)."""
+    ds = synthetic_ich_slices(n_slices=16, size=32, n_volumes=2, seed=0)
+    torch.manual_seed(0)
+    net = UNet(depth=3, top_filter=8, p_dropout=0.0)
+    kw = dict(n_epoch=1, batch_size=8, lr=1e-3,
+              loss_fn_kwargs={"reduction": "mean", "p": 2, "alpha": 0.2})
+    cpu = UNet2D(net, device="cpu", **kw)
+    want_sd = {k: v.clone() for k, v in net.state_dict().items()}
+    cpu.train(ds)
+    gpu = UNet2D(UNet(depth=3, top_filter=8, p_dropout=0.0), device="cuda", **kw)
+    gpu.unet.load_state_dict(want_sd)
+    gpu.train(ds.device_cache("cuda"))
+    lc, lg = cpu.outputs["train"]["evolution"][0][1], gpu.outputs["train"]["evolution"][0][1]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    a = torch.cat([v.flatten() for v in cpu.unet.state_dict().values() if v.is_floating_point()])
+    b = torch.cat([v.flatten().cpu() for v in gpu.unet.state_dict().values()
+                   if v.is_floating_point()])
+    d = (a - b).abs()
+    assert float((d <= 1e-4).float().mean()) >= 0.99 and float(d.max()) <= 2e-3 + 1e-6
