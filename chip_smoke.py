@@ -10,10 +10,16 @@ its last line:
 1. device: a CUDA card is required (no fallback to the CPU); prints its
    name and ``nvidia-smi``'s name and power limit;
 2. build: compiles ``ich_tpu_torch/csrc/*.cu`` into ``build/ich_tpu_torch/``;
-3. EDT kernel against its plain PyTorch version on the card, at the GAN
-   config's 16x256x256 and at 4x512x512: squared passes bit-equal,
-   distances within 1e-6, one 512^2 image against scipy within 1e-3, and
-   ``discounted_l1_loss`` on the card against the CPU within rtol 1e-5;
+3. the two EDT kernels of ``csrc/edt.cu`` against their plain PyTorch
+   versions on the card, with ``torch.equal``: the lower-envelope pass
+   (``edt_pass_1d``) along W and along H of the GAN config's 16x256x256, of
+   4x512x512 and of a ragged 3x100x37, and on random integer costs at
+   (64, 4096); the whole transform from the mask
+   (``distance_transform_edt_kernel``) at the same three shapes, with an
+   all-ones and an all-zeros image; one 512^2 image against scipy within
+   1e-3; ``discounted_l1_loss`` on the card against the CPU within rtol
+   1e-5; then each kernel's time beside its plain version's and its byte
+   bound at 16x256x256 and 4x512x512, and the loss's time;
 4. main path: the full-width 2.5D net (UNet depth 5, top_filter 32,
    BatchNorm, midchannels_factor 2, float32) with seeded random weights
    serves three 512x512x40 head-CT NIfTIs through ``ich_tpu_torch.serve``,
@@ -50,7 +56,7 @@ its last line:
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after. The line before the last is a JSON object with each
 kernel's launches on the path that runs it (the 2.5D serve's EDT leg), its
-error against the plain version and both times; the last line is
+error against the plain version, both times and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +72,7 @@ from collections import defaultdict
 import numpy as np
 import scipy.ndimage as ndi
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import serve
@@ -85,6 +92,8 @@ from ich_tpu_torch.train.segmentation3d import UNet3D
 SEED = 0
 GAN_SHAPE = (16, 256, 256)  # configs/inpainting_gan.json: batch 16, size 256
 BIG_SHAPE = (4, 512, 512)
+RAGGED_SHAPE = (3, 100, 37)
+COSTS_SHAPE = (64, 4096)  # the kernels' longest line
 VOL_SHAPE = (512, 512, 40)  # (H, W, Z) HU volume, as a head CT is stored
 N_VOLS = 3
 WINDOW = (50.0, 200.0)  # serve defaults --win-center / --win-width
@@ -98,6 +107,7 @@ PATCH3D = 64
 CROP3D = (slice(0, 64), slice(192, 320), slice(192, 320))  # 9 patches of 64^3
 H100_BF16_TFLOPS = 989.0  # dense, SXM, at 700 W (NVIDIA's data sheet)
 H100_TF32_TFLOPS, H100_FP32_TFLOPS = 495.0, 67.0  # the same data sheet
+H100_HBM_TBS = 3.35  # device memory, TB/s (the same data sheet)
 # phase 6: configs/unet2d.json at its width; (slices, volumes) per fold
 TRAIN_CFG = "configs/unet2d.json"
 TRAIN_FOLD, TEST_FOLD = (512, 16), (128, 4)
@@ -214,34 +224,62 @@ def phase_build() -> None:
     print(open(f"{lib_path}.log").read().strip())
 
 
+def _equal_pass(g: torch.Tensor, label: str) -> tuple:
+    """Kernel A on the rows of ``g`` against its plain version; returns the
+    kernel's output and the max abs difference."""
+    k, p = edt.edt_pass_1d(g), edt.edt_pass_1d_plain(g)
+    torch.cuda.synchronize()
+    check(torch.equal(k, p), f"edt_pass_1d differs from the plain pass at {label}")
+    return k, float((k - p).abs().max())
+
+
+def _timed(label: str, fn, plain, args: tuple, bound_ms: float) -> dict:
+    """Kernel and plain times in turns (kernel, plain, plain, kernel), with
+    the bound and the kernel's share of it."""
+    ms = [cuda_ms(f, *args) for f in (fn, plain, plain, fn)]
+    kernel_ms, plain_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    print(f"{label}: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
+          f"(bytes at {H100_HBM_TBS} TB/s), kernel at {100 * bound_ms / kernel_ms:.1f}% of "
+          f"the bound")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def _bytes_ms(n_bytes: int) -> float:
+    return n_bytes / (H100_HBM_TBS * 1e12) * 1e3
+
+
 def phase_edt(rng: np.random.Generator) -> dict:
+    """Both EDT kernels against their plain versions, bit for bit, then
+    their times; returns the two rows of the kernels line (but launches)."""
     dev = torch.device(DEV)
-    launches0 = edt.launches
-    max_err = 0.0
-    dists = {}
-    for shape in (GAN_SHAPE, BIG_SHAPE):
+    launches0, mask_launches0 = edt.launches, edt.mask_launches
+    err_a = err_b = 0.0
+    masks_by_shape = {}
+    for shape in (GAN_SHAPE, BIG_SHAPE, RAGGED_SHAPE):
         b, h, w = shape
         masks = stroke_masks(rng, b, h, w)
         masks[0] = 1.0  # no site: distances saturate at sqrt(1e10)
         masks[1] = 0.0  # all sites: distances are 0
         m = torch.from_numpy(masks).to(dev)
         g = torch.where(m > 0, edt.INF, 0.0).reshape(b * h, w)
-        k1, p1 = edt.edt_pass_1d(g), edt.edt_pass_1d_plain(g)
+        k1, e1 = _equal_pass(g, f"{shape} along W")
         gt = k1.reshape(b, h, w).transpose(1, 2).contiguous().reshape(b * w, h)
-        k2, p2 = edt.edt_pass_1d(gt), edt.edt_pass_1d_plain(gt)
+        _, e2 = _equal_pass(gt, f"{shape} along H")
+        d, d_plain = edt.distance_transform_edt_kernel(m), edt.distance_transform_edt_plain(m)
         torch.cuda.synchronize()
-        check(torch.equal(k1, p1) and torch.equal(k2, p2),
-              f"EDT squared passes differ from the plain version at {shape}")
-        max_err = max(max_err, float((k1 - p1).abs().max()), float((k2 - p2).abs().max()))
-        d = edt.distance_transform_edt_kernel(m)
-        d_plain = torch.sqrt(torch.clamp(p2.reshape(b, w, h).transpose(1, 2), max=edt.INF))
-        err = float((d - d_plain).abs().max())
-        check(err <= 1e-6, f"EDT distances differ by {err} at {shape}")
+        check(torch.equal(d, d_plain), f"distance_transform_edt_kernel differs from the "
+              f"plain composition at {shape}")
         check(bool((d[0] == 1e5).all()) and bool((d[1] == 0).all()),
               "all-ones mask must saturate at 1e5 and all-zeros give 0")
-        print(f"edt {shape}: passes torch.equal to plain, distance max err {err}")
-        dists[shape] = (masks, d)
-    masks, d = dists[BIG_SHAPE]
+        err_a = max(err_a, e1, e2)
+        err_b = max(err_b, float((d - d_plain).abs().max()))
+        print(f"edt {shape}: both passes and the transform torch.equal to plain")
+        masks_by_shape[shape] = (masks, d)
+    g = torch.from_numpy(rng.integers(0, 1 << 24, size=COSTS_SHAPE).astype(np.float32)).to(dev)
+    _, e = _equal_pass(g, f"{COSTS_SHAPE} integer costs")
+    err_a = max(err_a, e)
+    print(f"edt_pass_1d {COSTS_SHAPE} random integer costs in [0, 2^24): torch.equal to plain")
+    masks, d = masks_by_shape[BIG_SHAPE]
     err = float(np.abs(d[2].cpu().numpy() - ndi.distance_transform_edt(masks[2])).max())
     check(err <= 1e-3, f"EDT differs from scipy by {err} at 512^2")
     print(f"edt 512^2 vs scipy.ndimage.distance_transform_edt: max err {err}")
@@ -251,20 +289,33 @@ def phase_edt(rng: np.random.Generator) -> dict:
     im = rng.uniform(size=(b, h, w, 1)).astype(np.float32)
     mask = stroke_masks(rng, b, h, w)[..., None]
     args = [torch.from_numpy(a) for a in (rec, im, mask)]
-    on_card = float(discounted_l1_loss(*[a.to(dev) for a in args]))
+    card_args = [a.to(dev) for a in args]
+    on_card = float(discounted_l1_loss(*card_args))
     on_cpu = float(discounted_l1_loss(*args))
     check(abs(on_card - on_cpu) <= 1e-5 * abs(on_cpu),
           f"discounted_l1_loss card {on_card} vs cpu {on_cpu}")
     print(f"discounted_l1_loss {GAN_SHAPE}: card {on_card!r} cpu {on_cpu!r}")
-    check(edt.launches > launches0, "EDT launch counter did not move")
+    check(edt.launches > launches0 and edt.mask_launches > mask_launches0,
+          "EDT launch counters did not move")
 
-    g = torch.where(torch.from_numpy(dists[GAN_SHAPE][0]).to(dev) > 0, edt.INF, 0.0)
-    g = g.reshape(b * h, w)
-    ms = [cuda_ms(f, g) for f in (edt.edt_pass_1d, edt.edt_pass_1d_plain,
-                                   edt.edt_pass_1d_plain, edt.edt_pass_1d)]
-    kernel_ms, plain_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-    print(f"edt pass ({b * h}, {w}): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+    # timed on what discounted_l1_loss hands the transform: sites on the
+    # border of the strokes (a 3x3 dilation minus the mask), sparse
+    times = {}
+    for shape in (GAN_SHAPE, BIG_SHAPE):
+        b, h, w = shape
+        strokes = torch.from_numpy(stroke_masks(rng, b, h, w)).to(dev)[:, None]
+        m = (1.0 - (F.max_pool2d(strokes, 3, stride=1, padding=1) - strokes))[:, 0].contiguous()
+        g = torch.where(m > 0, edt.INF, 0.0).reshape(b * h, w)
+        times["a", shape] = _timed(f"edt_pass_1d ({b * h}, {w})", edt.edt_pass_1d,
+                                   edt.edt_pass_1d_plain, (g,), _bytes_ms(2 * 4 * g.numel()))
+        times["b", shape] = _timed(f"distance_transform_edt_kernel {shape}",
+                                   edt.distance_transform_edt_kernel,
+                                   edt.distance_transform_edt_plain, (m,),
+                                   _bytes_ms(2 * 4 * m.numel()))
+    loss_ms = cuda_ms(discounted_l1_loss, *card_args)
+    print(f"discounted_l1_loss {GAN_SHAPE}: {loss_ms!r} ms")
+    return {"edt_envelope_pass": {"max_abs_err": err_a, **times["a", GAN_SHAPE]},
+            "distance_transform_edt_kernel": {"max_abs_err": err_b, **times["b", GAN_SHAPE]}}
 
 
 def _calibrate_final_bias(net: torch.nn.Module, vol: np.ndarray) -> None:
@@ -300,7 +351,7 @@ def phase_main(rng: np.random.Generator, work: str) -> dict:
     model_fn = os.path.join(work, "model.pt")
     trainer.save_model(model_fn)
 
-    edt.launches = 0
+    edt.launches = edt.mask_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     serve.main(["--watch-dir", watch, "--output-dir", out, "--model", model_fn,
@@ -313,7 +364,8 @@ def phase_main(rng: np.random.Generator, work: str) -> dict:
                for _ in range(2))
     mask = torch.from_numpy(stroke_masks(rng, b, h, w)[..., None]).to(DEV)
     loss = float(discounted_l1_loss(rec, im, mask))
-    launches = edt.launches
+    launches = {"edt_envelope_pass": edt.launches,
+                "distance_transform_edt_kernel": edt.mask_launches}
 
     check(np.isfinite(loss), f"discounted_l1_loss not finite: {loss}")
     masks = []
@@ -363,8 +415,8 @@ def phase_main(rng: np.random.Generator, work: str) -> dict:
           f"positive share {positive:.4f}; discounted_l1_loss {loss!r}; "
           f"EDT launches on the main path {launches}")
     check(agree >= MIN_AGREEMENT, f"card/cpu voxel agreement {agree} < {MIN_AGREEMENT}")
-    check(launches > 0, "the main path launched no EDT kernel")
-    return {"launches": launches}
+    check(all(n > 0 for n in launches.values()), "the main path skipped an EDT kernel")
+    return launches
 
 
 def _calibrate_final_bias_3d(net: torch.nn.Module, vol_dhw: np.ndarray) -> None:
@@ -475,7 +527,7 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
     trainer.save_model(model_fn)
 
     # the path: serve --mode 3d, counts at 0 just before and read just after
-    edt.launches = 0
+    edt.launches = edt.mask_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     serve.main(["--watch-dir", watch, "--output-dir", out, "--model", model_fn,
@@ -485,7 +537,7 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
                 "--device", DEV, "--once"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {"edt_minplus_pass": edt.launches}
+    launches = {"edt_envelope_pass": edt.launches, "edt_mask_rows": edt.mask_launches}
 
     masks = []
     for i in range(N_VOLS):
@@ -621,7 +673,7 @@ def _trainer(cfg: dict, device, net: dict | None = None, **overrides) -> UNet2D:
 
 def _train_kfold(cfg: dict, folds: list) -> None:
     """(a) the k-fold experiment end to end."""
-    edt.launches = 0
+    edt.launches = edt.mask_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_supervised_2d(cfg, datasets_by_fold=lambda k: folds[k], device=DEV)
@@ -656,7 +708,7 @@ def _train_kfold(cfg: dict, folds: list) -> None:
         avg = f.read().strip().replace("\n", "; ")
     print(f"train2d k-fold: {cfg['split']['n_fold']} folds x {cfg['train']['n_epoch']} epochs "
           f"in {wall!r} s ({avg}); port kernel launches on the training path "
-          f"{{'edt_minplus_pass': {edt.launches}}}")
+          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}}}")
 
 
 def _hold_run(cfg: dict, dev, x, threads: int) -> dict:
@@ -855,21 +907,21 @@ def main() -> None:
     kind = phase_device()
     phase_build()
     rng = np.random.default_rng(SEED)
-    edt_row = phase_edt(rng)
+    edt_rows = phase_edt(rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        main_row = phase_main(rng, work)
+        main_launches = phase_main(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as work:
         phase_3d(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train2d_") as work:
         phase_train2d(work)
+    # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
-        "name": "edt_minplus_pass", "route": "cuda",
-        "source": "ich_tpu_torch/csrc/edt_minplus.cu",
-        "replaces": "ich_tpu/ops/pallas_edt.py:27",
-        "launches": main_row["launches"], **edt_row,
-    }]
+        "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
+        "replaces": "ich_tpu/ops/pallas_edt.py:27", "launches": main_launches[name],
+        **edt_rows[name], "bound_by": "bytes", "library_ms": None,
+    } for name in ("edt_envelope_pass", "distance_transform_edt_kernel")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -82,12 +82,15 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.edt_minplus_pass.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.edt_minplus_pass.restype = ctypes.c_int
-        lib.edt_minplus_max_n.argtypes = []
-        lib.edt_minplus_max_n.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        signatures = {
+            "edt_max_n": [],
+            "edt_envelope_rows": [ptr, ptr, i32, i32, ptr],
+            "edt_mask_rows": [ptr, ptr, i32, i32, ptr],
+            "edt_envelope_cols_sqrt": [ptr, i32, i32, i32, ptr],
+        }
+        for name, args in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, i32
         _lib = lib
     return _lib

@@ -2,8 +2,8 @@
 :mod:`ich_tpu.ops.distance`).
 
 Both functions take ``(..., H, W)`` tensors and run the separable two-pass
-EDT of :mod:`ich_tpu_torch.ops.edt`: on a CUDA tensor through the min-plus
-kernel, on a CPU tensor through its plain version.
+EDT of :mod:`ich_tpu_torch.ops.edt`: on a CUDA tensor through its two
+kernels, on a CPU tensor through their plain composition.
 """
 
 from __future__ import annotations

@@ -40,6 +40,41 @@ def test_kernel_matches_plain_on_card(card, rows, n):
     assert torch.equal(edt.edt_pass_1d(got), edt.edt_pass_1d_plain(got))
 
 
+@pytest.mark.parametrize("rows,n", [(64, 4096), (13, 100)])
+def test_kernel_matches_plain_on_card_integer_costs(card, rows, n):
+    """General costs in the kernel's exact domain (integers below 2^34)."""
+    rng = np.random.default_rng(rows * n)
+    g = torch.from_numpy(rng.integers(0, 1 << 24, size=(rows, n)).astype(np.float32)).cuda()
+    assert torch.equal(edt.edt_pass_1d(g), edt.edt_pass_1d_plain(g))
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 100, 37), (2, 1, 5, 64)])
+def test_transform_kernel_matches_plain_on_card(card, shape):
+    rng = np.random.default_rng(sum(shape))
+    mask = (rng.uniform(size=shape) > 0.05).astype(np.float32)
+    flat = mask.reshape((-1,) + shape[-2:])
+    flat[0], flat[-1, 0] = 1.0, 0.0  # an image without a site; a row of sites
+    m = torch.from_numpy(mask).cuda()
+    before = (edt.launches, edt.mask_launches)
+    got = edt.distance_transform_edt_kernel(m)
+    torch.cuda.synchronize()
+    assert (edt.launches, edt.mask_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == m.shape
+    assert torch.equal(got, edt.distance_transform_edt_plain(m))
+    assert bool((got.reshape(flat.shape)[0] == 1e5).all())
+
+
+def test_kernels_reject_long_lines_before_launch(card):
+    before = (edt.launches, edt.mask_launches)
+    with pytest.raises(ValueError):
+        edt.edt_pass_1d(torch.zeros(2, 4097, device="cuda"))
+    with pytest.raises(ValueError):
+        edt.distance_transform_edt_kernel(torch.ones(1, 4097, 8, device="cuda"))
+    with pytest.raises(ValueError):
+        edt.distance_transform_edt_kernel(torch.ones(1, 8, 4097, device="cuda"))
+    assert (edt.launches, edt.mask_launches) == before
+
+
 def test_kernel_rejects_non_contiguous(card):
     with pytest.raises(ValueError):
         edt.edt_pass_1d(torch.zeros(8, 16, device="cuda").t())
