@@ -51,7 +51,22 @@ its last line:
    times at batch 16 and 128 (``configs/unet2d_throughput.json``) with TF32
    on and off, peak device memory, the FLOPs of a step and their rate, and
    the epoch time with and without validation; (e) a profiler breakdown of
-   one warm step.
+   one warm step;
+7. 3D patch training at the width of ``configs/unet3d.json`` (UNet depth 4,
+   top_filter 16, midchannels_factor 1, GroupNorm, float32, 64x128x128
+   patches, batch 4, pos_frac 0.5, BinaryDiceLoss p 2 alpha 0.2,
+   sw_batch_size 8): (a) ``run_supervised_3d`` on a synthetic SegICH 3D
+   tree of the config's five 512x512x32 CTs at 5 mm (resampled to 2.5 mm
+   by the loader), 4 epochs x 25 steps, its artifacts checked and the mean
+   loss falling; (b) three full-width train steps (batch 2 of 32x64x64,
+   TF32 off) on the card and on the CPU, held as phase 6's; (c) the
+   ``AffineAugment3D`` warp with injected parameters and the
+   ``DevicePatchSampler`` gather with injected draws, card against CPU; (d)
+   warm step times, patches/s, voxels/s, FLOP rate and peak memory at
+   batch 4 of 64x128x128 in float32 with TF32, batch 8 and 64 of 64^3 in
+   bf16, and batch 2 of 128^3 in bf16 with remat, and the host and device
+   samplers' ms per batch; (e) a profiler breakdown of one warm step at
+   batch 4.
 
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after. The line before the last is a JSON object with each
@@ -77,17 +92,26 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import serve
 from ich_tpu_torch.data import nifti
+from ich_tpu_torch.data.datasets import load_segich_3d
+from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices
 from ich_tpu_torch.experiments.supervised2d import build_unet_from_cfg, run_supervised_2d
+from ich_tpu_torch.experiments.supervised3d import (
+    build_trainer3d,
+    build_unet3d_from_cfg,
+    run_supervised_3d,
+    split_test,
+)
 from ich_tpu_torch.kernels import _build
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
 from ich_tpu_torch.ops.transforms import build_pipeline
+from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmentation
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
 from ich_tpu_torch.train.segmentation2d import UNet2D
-from ich_tpu_torch.train.segmentation3d import UNet3D
+from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 
 SEED = 0
 GAN_SHAPE = (16, 256, 256)  # configs/inpainting_gan.json: batch 16, size 256
@@ -113,6 +137,20 @@ TRAIN_CFG = "configs/unet2d.json"
 TRAIN_FOLD, TEST_FOLD = (512, 16), (128, 4)
 HOLD_BATCH = 4
 TIMED_BATCHES = (16, 128)  # configs/unet2d.json, configs/unet2d_throughput.json
+# phase 7: configs/unet3d.json at its width, on SegICH-like CTs (5 mm slices,
+# which the loader resamples to the config's 2.5 mm)
+TRAIN3D_CFG = "configs/unet3d.json"
+CT3D_SHAPE, CT3D_SPACING = (512, 512, 32), (0.5, 0.5, 5.0)
+TRAIN3D_EPOCHS, TRAIN3D_STEPS = 4, 25  # the config: 100 x 100
+HOLD3D_PATCH, HOLD3D_BATCH = (32, 64, 64), 2  # the card/CPU hold (the CPU's step time)
+# (cell, patch, batch, dtype, remat): configs/unet3d.json; the patch of
+# configs/unet3d_throughput.json at batch 8 and 64 in the JAX bench arm's
+# bf16; the bench's 128^3 arm with remat
+TIMED3D = (("train3d_bs4_p64x128x128", (64, 128, 128), 4, torch.float32, False),
+           ("train3d_bs8_p64", (64, 64, 64), 8, torch.bfloat16, False),
+           ("train3d_bs64_p64", (64, 64, 64), 64, torch.bfloat16, False),
+           ("train3d_bs2_p128_remat", (128, 128, 128), 2, torch.bfloat16, True))
+SAMPLER_PATCH, SAMPLER_BATCH = (64, 64, 64), 8
 DEV = "cuda"
 
 
@@ -159,9 +197,10 @@ def stroke_masks(rng: np.random.Generator, b: int, h: int, w: int) -> np.ndarray
     return out
 
 
-def head_ct(rng: np.random.Generator, shape=VOL_SHAPE) -> np.ndarray:
+def head_ct_and_mask(rng: np.random.Generator, shape=VOL_SHAPE) -> tuple:
     """(H, W, Z) float32 HU volume: air, an elliptic skull, brain with
-    noise, and a few hyperdense bleeds."""
+    noise, and a few hyperdense bleeds; and the (H, W, Z) uint8 mask of the
+    bleeds."""
     h, w, z = shape
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     r = ((yy - h / 2) / (0.42 * h)) ** 2 + ((xx - w / 2) / (0.36 * w)) ** 2
@@ -170,14 +209,22 @@ def head_ct(rng: np.random.Generator, shape=VOL_SHAPE) -> np.ndarray:
     brain = r <= 0.85
     vol[brain] = 35.0
     vol += rng.normal(0, 8, shape).astype(np.float32) * brain[..., None]
+    mask = np.zeros(shape, np.uint8)
     zz = np.arange(z, dtype=np.float32)
     for _ in range(rng.integers(2, 5)):
         cy, cx = rng.uniform(0.35, 0.65) * h, rng.uniform(0.35, 0.65) * w
         cz, rad = rng.uniform(0.3, 0.7) * z, rng.uniform(0.03, 0.08) * h
         blob = (((yy - cy) ** 2 + (xx - cx) ** 2)[..., None] / rad**2
                 + ((zz - cz) / (z / 6)) ** 2) <= 1.0
-        vol[blob & brain[..., None]] = rng.uniform(60, 85)
-    return vol
+        bleed = blob & brain[..., None]
+        vol[bleed] = rng.uniform(60, 85)
+        mask[bleed] = 1
+    return vol, mask
+
+
+def head_ct(rng: np.random.Generator, shape=VOL_SHAPE) -> np.ndarray:
+    """The volume of :func:`head_ct_and_mask`."""
+    return head_ct_and_mask(rng, shape)[0]
 
 
 def init_net(net: torch.nn.Module, gen: torch.Generator) -> None:
@@ -903,6 +950,277 @@ def phase_train2d(work: str) -> None:
     _train_profile(warm, folds[0][0])
 
 
+def load_train3d_cfg(work: str) -> dict:
+    """``configs/unet3d.json`` cut to ``TRAIN3D_EPOCHS`` epochs of
+    ``TRAIN3D_STEPS`` steps, reading and writing under ``work``."""
+    with open(TRAIN3D_CFG) as f:
+        cfg = json.load(f)
+    cfg["path"] = {"DATA": os.path.join(work, "data"), "OUTPUT": os.path.join(work, "out")}
+    cfg["train"]["n_epoch"] = TRAIN3D_EPOCHS
+    cfg["train"]["steps_per_epoch"] = TRAIN3D_STEPS
+    return cfg
+
+
+def _write_segich3d(rng: np.random.Generator, cfg: dict) -> None:
+    """A SegICH 3D tree of the config's patients: ``ct_scans/<pid>.nii``
+    (int16 HU) and ``masks/<pid>.nii`` at ``CT3D_SPACING``."""
+    affine = np.diag(list(CT3D_SPACING) + [1.0])
+    for pid in cfg["dataset"]["patient_numbers"]:
+        vol, mask = head_ct_and_mask(rng, CT3D_SHAPE)
+        nifti.save(os.path.join(cfg["path"]["DATA"], "ct_scans", f"{pid:03}.nii"),
+                   vol.astype(np.int16), affine)
+        nifti.save(os.path.join(cfg["path"]["DATA"], "masks", f"{pid:03}.nii"), mask, affine)
+
+
+def _trainer3d(cfg: dict, device, patch, batch: int, dtype=torch.float32, remat=False,
+               augment_fn=None) -> UNet3D:
+    """The config's trainer and net (seeded), at another patch, batch,
+    dtype or remat, with ``augment_fn``."""
+    net = build_unet3d_from_cfg(cfg["net"], seed=SEED, dtype=dtype, remat=remat)
+    return build_trainer3d(cfg, net, device, patch_size=patch, batch_size=batch,
+                           augment_fn=augment_fn)
+
+
+def _train3d_driver(cfg: dict) -> None:
+    """(a) ``run_supervised_3d`` end to end: its artifacts and a falling
+    mean loss."""
+    edt.launches = edt.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = run_supervised_3d(cfg, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"])
+    for name in ("volume_prediction_scores.csv", "trained_unet3d.bin", "outputs.json"):
+        check(os.path.exists(os.path.join(out, name)), f"train3d: no {name}")
+    with open(os.path.join(out, "volume_prediction_scores.csv")) as f:
+        n_rows = sum(1 for _ in f) - 1
+    n_test = max(1, int(0.2 * len(cfg["dataset"]["patient_numbers"])))
+    check(n_rows == n_test, f"train3d: {n_rows} test rows, not {n_test}")
+    with open(os.path.join(out, "outputs.json")) as f:
+        o = json.load(f)
+    losses = [row[1] for row in o["train"]["evolution"]]
+    print(f"train3d run_supervised_3d: {cfg['train']['n_epoch']} epochs x "
+          f"{cfg['train']['steps_per_epoch']} steps at batch {cfg['train']['batch_size']}, "
+          f"patch {tuple(cfg['data']['patch_size'])}, float32 (TF32 on), in {wall!r} s (load, "
+          f"train, evaluate, save); epoch losses {losses!r}; test Dice "
+          f"{o['eval']['dice']['all']!r}, IoU {o['eval']['iou']['all']!r}; train time "
+          f"{o['train']['time']!r} s, evaluate {o['eval']['time']!r} s; the net in eval mode "
+          f"after training {not trainer.unet.training}; port kernel launches on the path "
+          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}}}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train3d: the mean loss did not fall {losses}")
+    check(not trainer.unet.training, "train3d: the net is left in train mode")
+
+
+def _hold3d_run(cfg: dict, dev, imgs: np.ndarray, msks: np.ndarray, threads: int) -> dict:
+    """Three train steps on one batch from the seeded weights (no
+    augmentation, no dropout), with ``threads`` CPU threads: the losses,
+    the step-1 gradient and the weights after."""
+    torch.set_num_threads(threads)
+    t = _trainer3d(cfg, dev, HOLD3D_PATCH, HOLD3D_BATCH)
+    state = t._train_state(t.steps_per_epoch_cfg)
+    t.unet.train()
+    x, y = (torch.from_numpy(a).to(t.device) for a in (imgs, msks))
+    losses = []
+    for i in range(3):
+        losses.append(float(t._step(state, x, y, t._generator(i))))
+        if i == 0:
+            grad = torch.cat([p.grad.flatten().cpu() for p in t.unet.parameters()])
+    return {"losses": losses, "grad": grad,
+            "params": torch.cat([p.detach().flatten().cpu() for p in t.unet.parameters()]),
+            "lrs": [state.schedule(i) for i in range(3)]}
+
+
+def _train3d_hold(cfg: dict, train) -> None:
+    """(b) three full-width train steps on the card and on the CPU, TF32
+    off, held against the CPU's own spread across thread counts (as phase
+    6's hold) and Adam's bound."""
+    imgs, msks = sample_patches(np.random.default_rng(SEED), train, HOLD3D_BATCH, HOLD3D_PATCH,
+                                cfg["train"]["pos_frac"])
+    torch.backends.cudnn.allow_tf32 = False
+    n = torch.get_num_threads()
+    card = _hold3d_run(cfg, DEV, imgs, msks, n)
+    cpu = _hold3d_run(cfg, "cpu", imgs, msks, n)
+    ref = _hold3d_run(cfg, "cpu", imgs, msks, max(1, n // 2))
+    torch.set_num_threads(n)
+    torch.backends.cudnn.allow_tf32 = True
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    loss1 = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    traj = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    traj_ref = max(abs(a - b) / abs(b) for a, b in zip(ref["losses"], cpu["losses"]))
+    g, g_ref = rel(card["grad"], cpu["grad"]), rel(ref["grad"], cpu["grad"])
+    w, w_ref = rel(card["params"], cpu["params"]), rel(ref["params"], cpu["params"])
+    d = (card["params"] - cpu["params"]).abs()
+    bound = 2 * 1.005 * sum(cpu["lrs"]) + 1e-6
+    print(f"train3d step hold, full width, batch {HOLD3D_BATCH} of {HOLD3D_PATCH}, TF32 off, "
+          f"card vs cpu ({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): "
+          f"step-1 loss rel diff {loss1!r} (tolerance 1e-5); losses over 3 steps card "
+          f"{card['losses']!r} cpu {cpu['losses']!r}, max rel diff {traj!r} (reference "
+          f"{traj_ref!r}, tolerance 2e-4); step-1 gradient rel L2 diff {g!r} (reference "
+          f"{g_ref!r}, tolerance 10x the reference); weights rel L2 diff {w!r} (reference "
+          f"{w_ref!r}), max |diff| {float(d.max())!r}, share within 1e-4 "
+          f"{float((d <= 1e-4).float().mean())!r} (tolerance: all within {bound!r}, Adam's "
+          f"bound)")
+    check(loss1 <= 1e-5 and traj <= 2e-4, "train3d: card and cpu losses disagree")
+    check(g <= max(10 * g_ref, 1e-6), "train3d: card and cpu gradients disagree")
+    check(float(d.max()) <= bound, "train3d: a weight moved beyond Adam's bound")
+
+
+def _train3d_aug_sampler_hold(cfg: dict, train) -> None:
+    """(c) the ``AffineAugment3D`` warp with injected parameters and the
+    device sampler's gather with injected draws, card against CPU."""
+    _, patch, b, _, _ = TIMED3D[0]
+    aug = AffineAugment3D()
+    m, o = aug.affine_params(torch.Generator().manual_seed(SEED), b)
+    aug.affine_params = lambda gen, bb: (m.to(gen.device), o.to(gen.device))
+    imgs, msks = sample_patches(np.random.default_rng(SEED + 1), train, b, patch,
+                                cfg["train"]["pos_frac"])
+    x, y = torch.from_numpy(imgs)[..., None], torch.from_numpy(msks)[..., None]
+    want = aug(torch.Generator(), x, y)
+    got = aug(torch.Generator(device=DEV), x.to(DEV), y.to(DEV))
+    err = float((got[0].cpu() - want[0]).abs().max())
+    mask_eq = bool(torch.equal(got[1].cpu(), want[1]))
+    print(f"train3d AffineAugment3D hold {tuple(x.shape)}: masks equal {mask_eq}, image max "
+          f"err {err!r} (tolerance 1e-5)")
+    check(mask_eq and err <= 1e-5, "train3d: card and cpu warps disagree")
+
+    rng = np.random.default_rng(SEED)
+    u = torch.from_numpy(rng.uniform(size=64).astype(np.float32))
+    r = torch.from_numpy(rng.integers(0, 1 << 62, size=(64, 5), dtype=np.int64))
+    out = {}
+    for dev in ("cpu", DEV):
+        s = DevicePatchSampler(train, patch, cfg["train"]["pos_frac"], device=dev)
+        vi, start = s.starts(u.to(dev), r.to(dev))
+        out[dev] = [vi.cpu(), start.cpu()] + [a.cpu() for a in s.gather(vi, start)]
+        del s
+    equal = all(torch.equal(a, c) for a, c in zip(out["cpu"], out[DEV]))
+    print(f"train3d DevicePatchSampler hold, 64 injected draws of {patch} over {len(train)} "
+          f"volumes: starts and patches equal on card and cpu {equal}")
+    check(equal, "train3d: card and cpu patch samplers disagree")
+
+
+def _train3d_step_times(cfg: dict, train):
+    """(d) warm ms per step of each ``TIMED3D`` cell through the trainer's
+    step (device sampler, the JAX bench arm's default patch augmentation),
+    FLOPs and their rate, peak memory; the host and device samplers' ms
+    per batch. Returns the warm (trainer, draw, state) of the first cell."""
+    torch.backends.cudnn.allow_tf32 = True
+    samplers, warm = {}, None
+    for cell, patch, bs, dtype, remat in TIMED3D:
+        if patch not in samplers:
+            samplers[patch] = DevicePatchSampler(train, patch, cfg["train"]["pos_frac"],
+                                                 device=DEV)
+        t = _trainer3d(cfg, DEV, patch, bs, dtype, remat,
+                       augment_fn=default_patch_augmentation())
+        state = t._train_state(t.steps_per_epoch_cfg)
+        draw = lambda gen, s=samplers[patch], bs=bs: s(gen, bs)  # noqa: E731
+        t.unet.train()
+        for i in range(3):  # warm-up: cuDNN picks its algorithms
+            t._sample_step(state, draw, i)
+        n = 4 if bs >= 64 else 10
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(n):
+            t._sample_step(state, draw, 3 + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as fc:
+            t._sample_step(state, draw, 99)
+        flops = fc.get_total_flops()
+        peak_tf, peak_name = ((H100_TF32_TFLOPS, "TF32") if dtype == torch.float32
+                              else (H100_BF16_TFLOPS, "bf16"))
+        tflops = flops / ms / 1e9
+        print(f"{cell}: patch {patch} batch {bs} {str(dtype)[6:]}"
+              f"{' (TF32 on)' if dtype == torch.float32 else ''}{' remat' if remat else ''}: "
+              f"{ms!r} ms/step = {bs / ms * 1e3!r} patches/s = "
+              f"{bs * int(np.prod(patch)) / ms / 1e3!r} Mvoxels/s; {flops / 1e12!r} TFLOP per "
+              f"step (FlopCounterMode: forward, backward{', the recompute' if remat else ''}) "
+              f"= {tflops!r} TFLOP/s, {100 * tflops / peak_tf!r}% of the dense {peak_name} peak; "
+              f"peak device memory {peak!r} GiB")
+        if cell == TIMED3D[0][0]:
+            warm = (t, draw, state)
+        elif patch == SAMPLER_PATCH and bs == SAMPLER_BATCH:
+            _sampler_times(t, train, samplers[patch], cfg["train"]["pos_frac"])
+        t.unet.eval()
+        del t, state
+        torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"train3d nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+def _sampler_times(t: UNet3D, train, sampler, pos_frac: float) -> None:
+    """Host ``sample_patches`` (with the copy to the card) against the
+    device sampler, ms per batch of ``SAMPLER_BATCH`` x ``SAMPLER_PATCH``."""
+    rng = np.random.default_rng(SEED)
+    times = {}
+    for name in ("host", "device"):
+        def one(i):
+            if name == "host":
+                return [t._to_device(a) for a in sample_patches(
+                    rng, train, SAMPLER_BATCH, SAMPLER_PATCH, pos_frac)]
+            return sampler(t._generator(i), SAMPLER_BATCH)
+
+        one(0)  # warm-up (the host sampler's positive-voxel cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            one(i)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"train3d patch samplers, batch {SAMPLER_BATCH} of {SAMPLER_PATCH} from "
+          f"{len(train)} volumes: host sample_patches + copy {times['host']!r} ms/batch, "
+          f"DevicePatchSampler {times['device']!r} ms/batch")
+
+
+OP_GROUPS_TRAIN3D = (("conv backward", ("convolution_backward",)), ("conv forward", ("conv",)),
+                     ("group_norm", ("group_norm",)), ("adam", ("_foreach_",)),
+                     ("gather", ("index", "gather")), ("copy", ("copy_", "to_copy")))
+TRAIN3D_RANGES = ("sample", "augment", "loss", "Optimizer.step#Adam.step")
+
+
+def _train3d_profile(t: UNet3D, draw, state) -> None:
+    """(e) one warm step of the config's cell under torch.profiler."""
+    t.unet.train()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._sample_step(state, draw, 200)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t.unet.eval()
+    print(_profile_summary(prof, wall_ms, f"train3d profile (one warm step, {TIMED3D[0][0]}, "
+                           f"TF32 on)", OP_GROUPS_TRAIN3D, TRAIN3D_RANGES))
+
+
+def phase_train3d(rng: np.random.Generator, work: str) -> None:
+    cfg = load_train3d_cfg(work)
+    t0 = time.perf_counter()
+    _write_segich3d(rng, cfg)
+    print(f"train3d data: {len(cfg['dataset']['patient_numbers'])} synthetic CTs {CT3D_SHAPE} at "
+          f"spacing {CT3D_SPACING} written in {time.perf_counter() - t0!r} s")
+    _train3d_driver(cfg)
+    t0 = time.perf_counter()
+    ds = load_segich_3d(cfg["path"]["DATA"], cfg["dataset"]["patient_numbers"],
+                        window=(cfg["data"]["win_center"], cfg["data"]["win_width"]),
+                        out_spacing=tuple(cfg["data"]["out_spacing"]))
+    train, _ = split_test(ds)
+    print(f"train3d load_segich_3d: {len(ds)} volumes, resampled to {ds.volumes[0].shape}, in "
+          f"{time.perf_counter() - t0!r} s; {len(train)} train volumes")
+    _train3d_hold(cfg, train)
+    _train3d_aug_sampler_hold(cfg, train)
+    _train3d_profile(*_train3d_step_times(cfg, train))
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -916,6 +1234,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train2d_") as work:
         phase_train2d(work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train3d_") as work:
+        phase_train3d(rng, work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

@@ -23,11 +23,13 @@ for each step, so that a resumed run replays the uninterrupted one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal"): a normal cut at
@@ -102,10 +104,15 @@ def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) ->
     variance ``v``. torch's own update takes the unbiased ``k v``,
     ``k = n / (n - 1)``; rescaling its result per channel,
     ``ra = torch_ra / k + (1 - m)(1 - 1/k) ra_old``, gives flax's update
-    without a second pass over the activations."""
+    without a second pass over the activations. With ``update_stats``
+    False (a checkpointed block's recompute) the update goes to copies and
+    the running averages stay as they are."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             False, 0.0, bn.eps)
+    if not bn.update_stats:
+        return F.batch_norm(x, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
+                            bn.bias, True, bn.momentum, bn.eps)
     k = x.numel() / x.shape[1]
     k = k / (k - 1.0)
     m = bn.momentum
@@ -119,10 +126,12 @@ def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) ->
 
 
 class BatchNorm2d(nn.BatchNorm2d):
+    update_stats = True
     forward = _batch_norm_forward
 
 
 class BatchNorm3d(nn.BatchNorm3d):
+    update_stats = True
     forward = _batch_norm_forward
 
 
@@ -178,10 +187,19 @@ def make_norm(kind: str, channels: int, ndim: int) -> nn.Module:
 class ConvBlock(nn.Module):
     """Double [3x3 conv -> norm -> ReLU] with SAME padding and stride 1, and
     dropout at the end (off in eval). Submodule names ``conv1``, ``bn1``,
-    ``conv2``, ``bn2`` follow the reference's torch ``ConvBlock``."""
+    ``conv2``, ``bn2`` follow the reference's torch ``ConvBlock``.
+
+    ``remat``: while gradients are recorded, the block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept and
+    its activations are recomputed in the backward pass, as the JAX
+    package's ``nn.remat``. The recompute replays the forward's dropout
+    draws (it restores the dropout generator's state, which
+    ``preserve_rng_state`` does not cover) and leaves BatchNorm's running
+    averages alone (they were updated once, in the forward)."""
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: int | None = None,
-                 ndim: int = 2, p_dropout: float = 0.0, norm: str = "batch"):
+                 ndim: int = 2, p_dropout: float = 0.0, norm: str = "batch",
+                 remat: bool = False):
         super().__init__()
         mid = mid_channels or out_channels
         self.conv1 = _CONV[ndim](in_channels, mid, 3, padding=1)
@@ -189,11 +207,47 @@ class ConvBlock(nn.Module):
         self.conv2 = _CONV[ndim](mid, out_channels, 3, padding=1)
         self.bn2 = make_norm(norm, out_channels, ndim)
         self.dropout = Dropout(p_dropout) if p_dropout > 0.0 else nn.Identity()
+        self.remat = remat
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         return self.dropout(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._body, x, use_reentrant=False,
+                              context_fn=self._remat_contexts)
+        return self._body(x)
+
+    def _remat_contexts(self):
+        """The (forward, recompute) contexts of one checkpointed call."""
+        gen = getattr(self.dropout, "generator", None)
+        norms = [n for n in (self.bn1, self.bn2) if hasattr(n, "update_stats")]
+        saved = {}
+
+        @contextlib.contextmanager
+        def forward():
+            if gen is not None:
+                saved["gen"] = gen.get_state()
+            yield
+
+        @contextlib.contextmanager
+        def recompute():
+            if gen is not None:
+                after = gen.get_state()
+                gen.set_state(saved["gen"])
+            for n in norms:
+                n.update_stats = False
+            try:
+                yield
+            finally:
+                for n in norms:
+                    del n.update_stats  # back to the class's True
+                if gen is not None:
+                    gen.set_state(after)
+
+        return forward(), recompute()
 
 
 def max_pool(x: torch.Tensor, ndim: int) -> torch.Tensor:

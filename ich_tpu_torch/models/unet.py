@@ -10,6 +10,11 @@ JAX package's variables unchanged.
 the input is cast to it, parameters stay float32 and are cast at use
 (:mod:`ich_tpu_torch.models.layers`), and the final 1x1 conv's output is
 cast to float32 before the sigmoid or softmax.
+
+``remat=True`` checkpoints every ``ConvBlock`` (:class:`ich_tpu_torch.models.
+layers.ConvBlock`), as the JAX package's ``UNet(remat=True)`` wraps each in
+``nn.remat``: activations inside a block are recomputed in the backward pass
+instead of stored. The ``state_dict`` keys do not change.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ class UNet(nn.Module):
                  midchannels_factor: int = 2,
                  p_dropout: Union[float, Sequence[float]] = 0.5,
                  use_final_activation: bool = True, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
@@ -65,11 +70,12 @@ class UNet(nn.Module):
         c = in_channels
         for i, ch in enumerate(down):
             self.down_block.append(ConvBlock(
-                c, ch, ch // midchannels_factor, ndim=ndim, p_dropout=p_drop[i], norm=norm))
+                c, ch, ch // midchannels_factor, ndim=ndim, p_dropout=p_drop[i], norm=norm,
+                remat=remat))
             c = ch
         self.bottleneck_block = ConvBlock(
             c, bottleneck, bottleneck // midchannels_factor, ndim=ndim,
-            p_dropout=p_drop[-1], norm=norm)
+            p_dropout=p_drop[-1], norm=norm, remat=remat)
         c = bottleneck
         self.up_samp = nn.ModuleList()
         self.up_block = nn.ModuleList()
@@ -77,7 +83,8 @@ class UNet(nn.Module):
             if not bilinear:
                 self.up_samp.append(up_conv(c, ch, ndim))
                 c = ch
-            self.up_block.append(ConvBlock(down[-1 - i] + c, ch, ch, ndim=ndim, norm=norm))
+            self.up_block.append(ConvBlock(down[-1 - i] + c, ch, ch, ndim=ndim, norm=norm,
+                                           remat=remat))
             c = ch
         self.final_conv = _CONV[ndim](c, out_channels, 1)
 

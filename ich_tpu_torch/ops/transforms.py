@@ -7,9 +7,11 @@ consecutive geometric transforms into one affine warp, which the image
 scipy's defaults.
 
 Ported: the affine transforms of ``configs/unet2d.json`` (``Translate``,
-``Rotate``, ``Scale``, ``HFlip``) and ``VFlip``. The others are registered
-under their names by the SSL slice; until then :func:`build_pipeline`
-raises a ``KeyError`` naming it.
+``Rotate``, ``Scale``, ``HFlip``) and ``VFlip``, and the photometric
+``AdjustBrightness`` and ``AdjustContrast`` (rank-agnostic, so the 3D patch
+augmentation of :mod:`ich_tpu_torch.ops.transforms3d` uses them too). The
+others are registered under their names by the SSL slice; until then
+:func:`build_pipeline` raises a ``KeyError`` naming it.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from ich_tpu_torch.ops.warp import affine_warp, compose_affine, identity_affine
 from ich_tpu_torch.utils.config import TRANSFORMS
 
 NOT_PORTED = (
-    "RandomCropResize", "Resize", "GaussianBlur", "AdjustBrightness", "AdjustContrast",
-    "AdjustBrighness", "RandomZCrop", "ToTensor", "ToTorchTensor", "RandomPatchSwap",
+    "RandomCropResize", "Resize", "GaussianBlur", "RandomZCrop", "ToTensor", "ToTorchTensor",
+    "RandomPatchSwap",
 )
 
 
@@ -146,6 +148,52 @@ class VFlip(HFlip):
     axis = 0
 
 
+class AdjustBrightness(Transform):
+    """Additive brightness jitter, clipped to [0, 1] (reference
+    ``transforms.py:445-491``), on a batch of any rank: each sample, with
+    probability ``p``, becomes ``clip(x + f, 0, 1)``, ``f`` uniform on
+    [low, high)."""
+
+    def __init__(self, p: float = 0.5, low: float = -0.3, high: float = 0.2):
+        self.p, self.low, self.high = p, low, high
+
+    def _factors(self, gen: torch.Generator, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(apply, factor) per sample, drawn in this order."""
+        apply = torch.rand(batch, generator=gen, device=gen.device) < self.p
+        return apply, _uniform(gen, batch, self.low, self.high)
+
+    @staticmethod
+    def _adjust(image: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(image + f, 0.0, 1.0)
+
+    def apply_factors(self, image: torch.Tensor, apply: torch.Tensor,
+                      f: torch.Tensor) -> torch.Tensor:
+        """The jitter with given (B,) ``apply`` flags and factors."""
+        img_b, sq = _ensure_batched(image)
+        shape = (-1,) + (1,) * (img_b.dim() - 1)
+        out = torch.where(apply.reshape(shape), self._adjust(img_b, f.reshape(shape)), img_b)
+        return out[0] if sq else out
+
+    def __call__(self, gen, image, mask=None):
+        out = self.apply_factors(image, *self._factors(gen, _ensure_batched(image)[0].shape[0]))
+        return (out, mask) if mask is not None else out
+
+    def __str__(self):
+        return f"{type(self).__name__}(p={self.p}, low={self.low}, high={self.high})"
+
+
+class AdjustContrast(AdjustBrightness):
+    """Multiplicative contrast jitter, clipped to [0, 1] (reference
+    ``transforms.py:493-539``): ``clip(x * f, 0, 1)``."""
+
+    def __init__(self, p: float = 0.5, low: float = 0.5, high: float = 1.5):
+        super().__init__(p=p, low=low, high=high)
+
+    @staticmethod
+    def _adjust(image: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(image * f, 0.0, 1.0)
+
+
 class Compose(Transform):
     """Mask-aware pipeline with affine fusion (reference
     ``transforms.py:21-70``: image-only or pairs, ``+`` concat, ``__str__``).
@@ -207,5 +255,7 @@ def build_pipeline(spec: dict) -> Compose:
     return Compose(*(TRANSFORMS.build(name, **(kw or {})) for name, kw in spec.items()))
 
 
-for _cls in (Translate, Rotate, Scale, HFlip, VFlip):
+for _cls in (Translate, Rotate, Scale, HFlip, VFlip, AdjustBrightness, AdjustContrast):
     TRANSFORMS.add(_cls.__name__, _cls)
+# the reference config's typo (GlobalContrastive_config.json), accepted as the JAX package does
+TRANSFORMS.add("AdjustBrighness", AdjustBrightness)

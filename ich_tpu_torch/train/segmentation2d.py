@@ -22,6 +22,7 @@ device before it fetches the oldest result. The multi-device branch of
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -70,9 +71,22 @@ def _resolve_loss(loss_fn, loss_fn_kwargs) -> Callable:
     return loss_fn
 
 
-def _with_channels(*xs: torch.Tensor):
-    """(B, H, W) tensors get a channel axis: (B, H, W, 1)."""
-    return tuple(x[..., None] if x.dim() == 3 else x for x in xs)
+def _with_channels(spatial_ndim: int, *xs: torch.Tensor):
+    """Batched tensors without a channel axis, (B, H, W) or (B, D, H, W),
+    get one last: (B, H, W, 1) or (B, D, H, W, 1)."""
+    return tuple(x[..., None] if x.dim() == 1 + spatial_ndim else x for x in xs)
+
+
+@contextlib.contextmanager
+def eval_mode(net: nn.Module):
+    """``net`` in eval mode inside the block, its previous mode restored
+    after."""
+    was_training = net.training
+    net.eval()
+    try:
+        yield
+    finally:
+        net.train(was_training)
 
 
 def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> None:
@@ -95,6 +109,8 @@ class UNet2D:
     W, Z) volumes. The constructor takes the JAX trainer's arguments but
     ``mesh``; ``num_workers`` is accepted for the configs and unused (there
     are no host workers)."""
+
+    _spatial_ndim = 2  # 3 in the volumetric subclass
 
     def __init__(
         self,
@@ -172,15 +188,27 @@ class UNet2D:
             for idx in plan:
                 yield self._to_device(images[idx]), self._to_device(masks[idx])
 
-    def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
-        images, masks = _with_channels(*batch)
+    def _generator(self, seed: int) -> torch.Generator:
+        """The step's generator on the device, seeded with ``seed``."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        return gen
+
+    def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
+        return self._step(state, *batch, self._generator(seed))
+
+    def _step(self, state: TrainState, images: torch.Tensor, masks: torch.Tensor,
+              gen: torch.Generator) -> torch.Tensor:
+        """One step on a (B, *spatial[, 1]) batch: the channel axis added,
+        augmentation and dropout drawn from ``gen``, the net in its current
+        mode (channels moved first for it and back), the loss, backward and
+        Adam; returns the loss."""
+        images, masks = _with_channels(self._spatial_ndim, images, masks)
         if self.augment_fn is not None:
             with torch.profiler.record_function("augment"):
                 images, masks = self.augment_fn(gen, images, masks)
         _set_dropout_generator(state.model, gen)
-        pred = state.model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
             loss = self.loss(pred, masks)
         state.optimizer.zero_grad(set_to_none=True)
@@ -251,8 +279,8 @@ class UNet2D:
     def _eval_batch(self, images: torch.Tensor, masks: torch.Tensor, return_pred: bool):
         """(5, B) float32 rows TN, FP, FN, TP, label, and the (B, H, W)
         uint8 {0, 1} prediction if ``return_pred``."""
-        images, masks = _with_channels(images, masks)
-        pred = self.unet(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        images, masks = _with_channels(self._spatial_ndim, images, masks)
+        pred = self.unet(images.movedim(-1, 1)).movedim(1, -1)
         pred_bin = (pred >= 0.5).to(torch.float32)
         tn, fp, fn, tp = batch_binary_confusion_matrix(pred_bin, masks)
         label = (masks.reshape(masks.shape[0], -1).amax(dim=1) > 0).to(torch.float32)
@@ -278,38 +306,36 @@ class UNet2D:
         start_time = time.time()
         if print_to_logger:
             logger.info("Start evaluating the U-Net 2.5D.")
-        was_training = self.unet.training
-        self.unet.eval()
         return_pred = save_path is not None
         # every batch has batch_size rows; the wrapped tail's duplicates are
         # dropped below
         plan = np.stack(list(batch_indices(n, self.batch_size, shuffle=False, pad_wrap=True)))
-        fetched = fetch_pipelined(
-            (self._eval_batch(x, y, return_pred) for x, y in self._batches(dataset, plan)),
-            depth=8, fetch=lambda out: tuple(o.cpu().numpy() for o in out))
-
         rows = {k: [] for k in SLICE_COLUMNS[:-1]}
-        for b, (idx, out) in enumerate(zip(plan, fetched)):
-            valid = min(len(idx), n - b * self.batch_size)
-            tn, fp, fn, tp, label = out[0]
-            for j in range(valid):
-                vid, snb = int(dataset.vol_ids[idx[j]]), int(dataset.slice_nbrs[idx[j]])
-                pred_fn = "-"
-                if return_pred:
-                    os.makedirs(os.path.join(save_path, f"{vid}"), exist_ok=True)
-                    pred_fn = f"{vid}/{snb}.bmp"
-                    save_bmp_gray(os.path.join(save_path, pred_fn), out[1][j] * np.uint8(255))
-                rows["volID"].append(vid)
-                rows["slice"].append(snb)
-                rows["label"].append(int(label[j]))
-                rows["TP"].append(float(tp[j]))
-                rows["TN"].append(float(tn[j]))
-                rows["FP"].append(float(fp[j]))
-                rows["FN"].append(float(fn[j]))
-                rows["pred_fn"].append(pred_fn)
-            if self.print_progress:
-                print_progressbar(b, len(plan), name="\t\tEvaluation Batch", erase=True)
-        self.unet.train(was_training)
+        with eval_mode(self.unet):
+            fetched = fetch_pipelined(
+                (self._eval_batch(x, y, return_pred) for x, y in self._batches(dataset, plan)),
+                depth=8, fetch=lambda out: tuple(o.cpu().numpy() for o in out))
+
+            for b, (idx, out) in enumerate(zip(plan, fetched)):
+                valid = min(len(idx), n - b * self.batch_size)
+                tn, fp, fn, tp, label = out[0]
+                for j in range(valid):
+                    vid, snb = int(dataset.vol_ids[idx[j]]), int(dataset.slice_nbrs[idx[j]])
+                    pred_fn = "-"
+                    if return_pred:
+                        os.makedirs(os.path.join(save_path, f"{vid}"), exist_ok=True)
+                        pred_fn = f"{vid}/{snb}.bmp"
+                        save_bmp_gray(os.path.join(save_path, pred_fn), out[1][j] * np.uint8(255))
+                    rows["volID"].append(vid)
+                    rows["slice"].append(snb)
+                    rows["label"].append(int(label[j]))
+                    rows["TP"].append(float(tp[j]))
+                    rows["TN"].append(float(tn[j]))
+                    rows["FP"].append(float(fp[j]))
+                    rows["FN"].append(float(fn[j]))
+                    rows["pred_fn"].append(pred_fn)
+                if self.print_progress:
+                    print_progressbar(b, len(plan), name="\t\tEvaluation Batch", erase=True)
 
         cols = {k: np.asarray(v, dtype=np.float64 if k in ("TP", "TN", "FP", "FN") else None)
                 for k, v in rows.items()}

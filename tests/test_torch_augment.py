@@ -191,6 +191,6 @@ def test_build_pipeline_registry_and_not_ported():
     assert len(both.transforms) == 5 and isinstance(both, T.Compose)
     for name in ("Translate", "Rotate", "Scale", "HFlip", "VFlip"):
         assert name in TRANSFORMS
-    for name in ("GaussianBlur", "AdjustBrighness", "RandomPatchSwap", "Resize"):
+    for name in ("GaussianBlur", "RandomZCrop", "RandomPatchSwap", "Resize"):
         with pytest.raises(KeyError, match="SSL slice"):
             T.build_pipeline({name: {}})

@@ -9,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from ich_tpu_torch.data.core import VolumeDataset3D
+from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import edt
 from ich_tpu_torch.ops import transforms as T
+from ich_tpu_torch.ops import transforms3d as T3
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
 
@@ -154,3 +157,96 @@ def test_train_steps_card_match_cpu(card):
                    if v.is_floating_point()])
     d = (a - b).abs()
     assert float((d <= 1e-4).float().mean()) >= 0.99 and float(d.max()) <= 2e-3 + 1e-6
+
+
+def _volumes_3d(n=3, shape=(20, 40, 36), seed=0):
+    rng = np.random.default_rng(seed)
+    vols = [rng.uniform(size=shape).astype(np.float32) for _ in range(n)]
+    masks = [(rng.uniform(size=shape) > 0.97).astype(np.float32) for _ in range(n)]
+    return VolumeDataset3D(vols, masks, np.arange(n))
+
+
+def test_patch_sampler_gather_card_matches_cpu(card):
+    """The device sampler's starts and gathered patches for the same
+    injected draws: equal on the card and on the CPU."""
+    ds = _volumes_3d()
+    rng = np.random.default_rng(1)
+    u = torch.from_numpy(rng.uniform(size=16).astype(np.float32))
+    r = torch.from_numpy(rng.integers(0, 1 << 62, size=(16, 5), dtype=np.int64))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = DevicePatchSampler(ds, (16, 32, 32), pos_frac=0.5, device=dev)
+        vi, start = s.starts(u.to(dev), r.to(dev))
+        out[dev] = (vi.cpu(), start.cpu()) + tuple(t.cpu() for t in s.gather(vi, start))
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_warp_inplane_card_matches_cpu(card, order):
+    """``AffineAugment3D``'s warp with parameters drawn on the CPU: masks
+    (order 0) equal, images within 1e-5."""
+    aug = T3.AffineAugment3D()
+    m, o = aug.affine_params(torch.Generator().manual_seed(0), 4)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(4, 8, 32, 40, 1))
+                         .astype(np.float32))
+    if order == 0:
+        x = (x > 0.6).float()
+    want = T3._warp_inplane(x, m, o, order)
+    got = T3._warp_inplane(x.cuda(), m.cuda(), o.cuda(), order).cpu()
+    if order == 0:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_train_steps_3d_card_match_cpu(card):
+    """Two 3D train steps (d3 f8 GroupNorm, 16x32x32 patches, batch 2, the
+    host sampler so both devices see the same patches, TF32 off) from the
+    same weights: the epoch loss within rtol 1e-4, every weight within
+    Adam's bound (2 lr a step) and 99% within 1e-4."""
+    ds = _volumes_3d()
+    torch.manual_seed(0)
+    kw = dict(patch_size=(16, 32, 32), steps_per_epoch=2, n_epoch=1, batch_size=2, lr=1e-3,
+              loss_fn_kwargs={"reduction": "mean", "p": 2, "alpha": 0.2},
+              on_device_sampling=False)
+    net = dict(depth=3, ndim=3, top_filter=8, norm="group", p_dropout=0.0)
+    cpu = UNet3D(UNet(**net), device="cpu", **kw)
+    gpu = UNet3D(UNet(**net), device="cuda", **kw)
+    gpu.unet.load_state_dict(cpu.unet.state_dict())
+    cpu.train(ds)
+    gpu.train(ds)
+    lc, lg = cpu.outputs["train"]["evolution"][0][1], gpu.outputs["train"]["evolution"][0][1]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    a = torch.cat([v.flatten() for v in cpu.unet.state_dict().values()])
+    b = torch.cat([v.flatten().cpu() for v in gpu.unet.state_dict().values()])
+    d = (a - b).abs()
+    assert float((d <= 1e-4).float().mean()) >= 0.99 and float(d.max()) <= 4e-3 + 1e-6
+
+
+@pytest.mark.parametrize("norm", ["group", "batch"])
+def test_remat_matches_plain_on_card(card, norm):
+    """``remat=True`` with dropout 0.3 on the card: the recompute replays
+    the card generator's dropout draws and skips BatchNorm's second running
+    update, so the gradient (all parameters together: the biases of convs
+    feeding a BatchNorm have rounding-noise gradients) is within rel L2 1e-5
+    of the plain net's and the running statistics within rtol 1e-5 (cuDNN's
+    weight gradients may sum in another order); other dropout masks would
+    move the gradient by far more."""
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 1, 16, 32, 32))
+                         .astype(np.float32)).cuda()
+    nets = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        net = UNet(depth=3, ndim=3, top_filter=8, norm=norm, p_dropout=0.3,
+                   remat=remat).cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for m in net.modules():
+            if hasattr(m, "generator"):
+                m.generator = gen
+        net(x).square().mean().backward()
+        nets[remat] = net
+    a, b = (torch.cat([p.grad.flatten() for p in nets[r].parameters()]) for r in (False, True))
+    assert float((a - b).norm()) <= 1e-5 * float(a.norm())
+    for (k, a), b in zip(nets[False].named_buffers(), nets[True].buffers()):
+        assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-7), k

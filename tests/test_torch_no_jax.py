@@ -20,6 +20,9 @@ PROBE = textwrap.dedent("""
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "ich_tpu")
               and sys.modules[m] is not None]
     assert not loaded, loaded
+    for name in ("ich_tpu_torch.ops.transforms3d", "ich_tpu_torch.data.patch_sampler",
+                 "ich_tpu_torch.experiments.supervised3d"):
+        assert name in names, name
     print(len(names))
 """)
 
@@ -29,4 +32,4 @@ def test_port_and_chip_smoke_import_without_jax():
     r = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25  # every submodule of the slices was imported
+    assert int(r.stdout.split()[-1]) >= 40  # every submodule of the slices was imported
