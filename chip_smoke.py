@@ -66,10 +66,32 @@ its last line:
    batch 4 of 64x128x128 in float32 with TF32, batch 8 and 64 of 64^3 in
    bf16, and batch 2 of 128^3 in bf16 with remat, and the host and device
    samplers' ms per batch; (e) a profiler breakdown of one warm step at
-   batch 4.
+   batch 4;
+8. SSL pretraining at the width of ``configs/context_restoration.json`` and
+   ``configs/contrastive_global_local.json`` (UNet depth 5, top_filter 32,
+   midchannels_factor 1, BatchNorm, no dropout, float32 with TF32, 256x256
+   slices): (a) 256 synthetic RSNA DICOMs of 512x512 written, pivoted with
+   ``write_rsna_slice_info`` and loaded with ``load_rsna_slices``, then
+   ``pretrain_context_restoration`` (batch 32, 10 rotated swaps of 10-30 px)
+   for 2 epochs, its artifacts and the falling restoration MSE checked, the
+   bottleneck features of every slice, and ``run_supervised_2d_with_init``
+   for 2 folds x 1 epoch on synthetic folds, its log naming every weight
+   key moved; (b) ``pretrain_contrastive`` for 2 global epochs (batch 64,
+   MLP head 256-128, tau 0.5) and 1 local epoch (n_decoder 3, head 64-32,
+   K 3, 13 regions, the encoder frozen): the frozen encoder equal to the
+   global weights, its running statistics moved, the decoder and head
+   trained; (c) three full-width steps of each trainer (batch 2, the
+   randomness injected, TF32 off) on the card and on the CPU, held as phase
+   6's, and the patch swap (equal), the blur and the crop-resize warp
+   (within 1e-5) at batch 32 of 256x256, card against CPU; (d) warm step
+   times, slices/s, FLOP rate and peak memory of context restoration at
+   batch 32 and global and local contrastive at batch 64; (e) a profiler
+   breakdown of one context-restoration step (ranges ``corrupt``, ``net``,
+   ``loss``) and of one global contrastive step (``views``, ``net``,
+   ``loss``).
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after. The line before the last is a JSON object with each
+read just after (the training and SSL paths must read 0). The line before the last is a JSON object with each
 kernel's launches on the path that runs it (the 2.5D serve's EDT leg), its
 error against the plain version, both times and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -92,9 +114,17 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import serve
 from ich_tpu_torch.data import nifti
-from ich_tpu_torch.data.datasets import load_segich_3d
+from ich_tpu_torch.data.core import LabeledSliceDataset
+from ich_tpu_torch.data.datasets import load_rsna_slices, load_segich_3d, write_rsna_slice_info
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
-from ich_tpu_torch.data.synthetic import synthetic_ich_slices
+from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree
+from ich_tpu_torch.experiments.pretrain_finetune import (
+    build_encoder,
+    build_partial_unet,
+    pretrain_context_restoration,
+    pretrain_contrastive,
+    run_supervised_2d_with_init,
+)
 from ich_tpu_torch.experiments.supervised2d import build_unet_from_cfg, run_supervised_2d
 from ich_tpu_torch.experiments.supervised3d import (
     build_trainer3d,
@@ -105,6 +135,8 @@ from ich_tpu_torch.experiments.supervised3d import (
 from ich_tpu_torch.kernels import _build
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
+from ich_tpu_torch.ops import losses as losses_mod
+from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops.transforms import build_pipeline
 from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmentation
 from ich_tpu_torch.ops import sliding_window as sw
@@ -112,6 +144,7 @@ from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
+from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
 
 SEED = 0
 GAN_SHAPE = (16, 256, 256)  # configs/inpainting_gan.json: batch 16, size 256
@@ -151,6 +184,15 @@ TIMED3D = (("train3d_bs4_p64x128x128", (64, 128, 128), 4, torch.float32, False),
            ("train3d_bs64_p64", (64, 64, 64), 64, torch.bfloat16, False),
            ("train3d_bs2_p128_remat", (128, 128, 128), 2, torch.bfloat16, True))
 SAMPLER_PATCH, SAMPLER_BATCH = (64, 64, 64), 8
+# phase 8: SSL pretraining at the configs' width; RSNA-like DICOMs at 512^2
+# loaded at the configs' 256^2
+CR_CFG, CON_CFG = "configs/context_restoration.json", "configs/contrastive_global_local.json"
+RSNA_SLICES, RSNA_SIZE = 256, 512
+SSL_EPOCHS = (2, 2, 1)  # context restoration, global, local (the configs: 100, 100, 50)
+SSL_FOLD = ((128, 4), (32, 2))  # the fine-tune's (slices, volumes): train, test per fold
+SSL_HOLD_BATCH = 2  # the card/CPU hold (the CPU's step time)
+SSL_TIMED = (("ssl_cr_bs32", "cr", 32), ("ssl_contrastive_global_bs64", "global", 64),
+             ("ssl_contrastive_local_bs64", "local", 64))
 DEV = "cuda"
 
 
@@ -1221,6 +1263,367 @@ def phase_train3d(rng: np.random.Generator, work: str) -> None:
     _train3d_profile(*_train3d_step_times(cfg, train))
 
 
+# -- phase 8: SSL pretraining ---------------------------------------------------------
+
+def load_ssl_cfg(path: str, work: str) -> dict:
+    """An SSL config (its width as it is) reading the RSNA slices under
+    ``work/rsna`` and writing under ``work/out``."""
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["path"] = {"RSNA_DATA": os.path.join(work, "rsna", "stage_2_train"),
+                   "DATA": work, "OUTPUT": os.path.join(work, "out")}
+    cfg["split"]["n_fold"] = 2
+    return cfg
+
+
+def _rsna_data(cfg: dict, work: str) -> LabeledSliceDataset:
+    """``RSNA_SLICES`` synthetic RSNA DICOMs of ``RSNA_SIZE``^2 written,
+    pivoted and loaded at the config's size."""
+    t0 = time.perf_counter()
+    label_csv = write_rsna_tree(os.path.join(work, "rsna"), n_slices=RSNA_SLICES, size=RSNA_SIZE,
+                                seed=SEED)
+    t1 = time.perf_counter()
+    n = write_rsna_slice_info(label_csv, os.path.join(cfg["path"]["RSNA_DATA"], "slice_info.csv"))
+    data = load_rsna_slices(cfg["path"]["RSNA_DATA"],
+                            window=(cfg["data"]["win_center"], cfg["data"]["win_width"]),
+                            size=cfg["data"]["size"])
+    t2 = time.perf_counter()
+    check(n == RSNA_SLICES and data.images.shape == (RSNA_SLICES,) + (cfg["data"]["size"],) * 2,
+          f"ssl: RSNA slices {n} rows, images {data.images.shape}")
+    check(float(data.images.std()) > 0.05 and 0 < data.labels[:, 0].sum() < len(data),
+          "ssl: degenerate RSNA slices or labels")
+    print(f"ssl data: write_rsna_tree {RSNA_SLICES} DICOMs of {RSNA_SIZE}^2 in {t1 - t0!r} s; "
+          f"write_rsna_slice_info + load_rsna_slices at {cfg['data']['size']}^2 in {t2 - t1!r} s; "
+          f"{int(data.labels[:, 0].sum())} positive slices")
+    return data
+
+
+def _ssl_folds(cfg: dict) -> list:
+    size = cfg["data"]["size"]
+    return [(synthetic_ich_slices(n_slices=SSL_FOLD[0][0], size=size, n_volumes=SSL_FOLD[0][1],
+                                  seed=SEED + 200 + k).device_cache(DEV),
+             synthetic_ich_slices(n_slices=SSL_FOLD[1][0], size=size, n_volumes=SSL_FOLD[1][1],
+                                  seed=SEED + 300 + k))
+            for k in range(cfg["split"]["n_fold"])]
+
+
+def _edt_launches() -> dict:
+    return {"edt_envelope_pass": edt.launches, "edt_mask_rows": edt.mask_launches}
+
+
+def _ssl_cr_driver(cfg: dict, data) -> dict:
+    """(a) context restoration cut to ``SSL_EPOCHS[0]`` epochs, then the
+    k-fold fine-tune from its weights; returns the weights."""
+    cfg = {**cfg, "train": {**cfg["train"], "n_epoch": SSL_EPOCHS[0]}}
+    edt.launches = edt.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weights = pretrain_context_restoration(cfg, data.device_cache(DEV), device=DEV)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"], "pretrain")
+    for name in ("pretrained.bin", "outputs.json", "checkpoint.bin"):
+        check(os.path.exists(os.path.join(pre, name)), f"ssl cr: no {name}")
+    with open(os.path.join(pre, "outputs.json")) as f:
+        hist = json.load(f)["train"]["evolution"]
+    mse = [row[1] for row in hist]
+    check(all(np.isfinite(mse)) and mse[-1] < mse[0], f"ssl cr: the restoration MSE did not fall {mse}")
+
+    folds = _ssl_folds(cfg)
+    ft = {**cfg, "train": {**cfg["train"], "n_epoch": 1}}
+    t0 = time.perf_counter()
+    out = run_supervised_2d_with_init(ft, weights, lambda k: folds[k], device=DEV)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    launches = _edt_launches()
+    for name in ("average_scores.txt", "all_volume_prediction.csv", "Fold_1/outputs.json",
+                 "Fold_2/trained_unet.bin"):
+        check(os.path.exists(os.path.join(out, name)), f"ssl cr fine-tune: no {name}")
+    with open(os.path.join(out, "Fold_1", "log.txt")) as f:
+        line = next((ln for ln in f if "matching weight keys" in ln), "")
+    check(line.split("|")[-1].split()[:1] == [str(len(weights))],
+          f"ssl cr fine-tune: the log does not name {len(weights)} moved keys: {line!r}")
+    with open(os.path.join(out, "average_scores.txt")) as f:
+        avg = f.read().strip().replace("\n", "; ")
+    print(f"ssl context restoration ({CR_CFG}: d{cfg['net']['depth']} f{cfg['net']['top_filter']} "
+          f"mcf{cfg['net']['midchannels_factor']}, batch {cfg['train']['batch_size']}, "
+          f"{cfg['corruption']['n_swap']} swaps of {cfg['corruption']['swap_w']} px rotated): "
+          f"{SSL_EPOCHS[0]} epochs of {len(data) // cfg['train']['batch_size']} steps in "
+          f"{pre_s!r} s (with the t-SNE attempt), restoration MSE per epoch {mse!r}; fine-tune "
+          f"{cfg['split']['n_fold']} folds x 1 epoch in {ft_s!r} s ({avg}); fine-tune log: "
+          f"{line.split('|')[-1].strip()!r}; EDT launches on the path {launches}")
+    check(not any(launches.values()), "ssl cr: an EDT kernel ran on the SSL path")
+    return weights
+
+
+def _ssl_contrastive_driver(cfg: dict, data) -> None:
+    """(b) global then local contrastive, cut to ``SSL_EPOCHS[1:]`` epochs:
+    the frozen encoder equal to the global weights bit for bit, its running
+    statistics moved, the decoder and head trained."""
+    cfg = {**cfg, "train": {**cfg["train"], "n_epoch": SSL_EPOCHS[1]},
+           "local": {**cfg["local"], "n_epoch": SSL_EPOCHS[2]}}
+    edt.launches = edt.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weights = pretrain_contrastive(cfg, data.device_cache(DEV), device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _edt_launches()
+    out = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"])
+    hist = {}
+    for phase in ("pretrain_global", "pretrain_local"):
+        for name in ("pretrained.bin", "outputs.json"):
+            check(os.path.exists(os.path.join(out, phase, name)), f"ssl {phase}: no {name}")
+        with open(os.path.join(out, phase, "outputs.json")) as f:
+            hist[phase] = [row[1] for row in json.load(f)["train"]["evolution"]]
+    glob = torch.load(os.path.join(out, "pretrain_global", "pretrained.bin"), weights_only=True)
+    part = build_partial_unet(cfg)  # the local phase's initial weights
+    init = part.state_dict()
+    part_params = [k for k, _ in part.named_parameters()]
+    frozen = [k for k in part_params if k in glob]
+    equal = all(torch.equal(weights[k].cpu(), glob[k]) for k in frozen)
+    stats = [k for k in weights if k in glob and "running" in k]
+    stats_moved = sum(not torch.equal(weights[k].cpu(), glob[k]) for k in stats)
+    trained = [k for k in part_params if k not in glob]
+    moved = sum(not torch.equal(weights[k].cpu(), init[k]) for k in trained)
+    print(f"ssl contrastive ({CON_CFG}: global batch {cfg['train']['batch_size']}, MLP head "
+          f"{cfg['net']['MLP_head']}, tau {cfg['tau']}; local n_decoder "
+          f"{cfg['local']['n_decoder']}, head {cfg['local']['head_channel']}, K "
+          f"{cfg['local']['K']}, n_region {cfg['local']['n_region']}): {SSL_EPOCHS[1]} global + "
+          f"{SSL_EPOCHS[2]} local epochs in {wall!r} s; losses per epoch {hist!r}; local phase: "
+          f"{len(frozen)} frozen parameters equal to the global weights {equal}, "
+          f"{stats_moved}/{len(stats)} of their running statistics moved, {moved}/"
+          f"{len(trained)} decoder and head parameters trained; EDT launches on the path "
+          f"{launches}")
+    check(all(np.isfinite(v).all() for v in hist.values()), "ssl contrastive: a loss is not finite")
+    check(frozen and equal, "ssl contrastive: the frozen encoder moved in the local phase")
+    check(stats_moved == len(stats) > 0, "ssl contrastive: the frozen encoder's statistics stayed")
+    check(moved == len(trained) > 0, "ssl contrastive: a decoder or head parameter did not train")
+    check(not any(launches.values()), "ssl contrastive: an EDT kernel ran on the SSL path")
+
+
+class _TwoViews:
+    """Fixed views: the batch, then its left-right mirror, call by call."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, gen, x):
+        self.calls += 1
+        return x if self.calls % 2 else x.flip(2)
+
+
+def _ssl_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1):
+    """A full-width trainer of ``kind`` from the seeded nets; the local one
+    with the seeded encoder transferred and frozen."""
+    tr = dict(n_epoch=n_epoch, batch_size=batch, lr=cfg["train"]["lr"], seed=SEED, device=device)
+    if kind == "cr":
+        c = cfg["corruption"]
+        return ContextRestoration(
+            build_unet_from_cfg({**cfg["net"], "use_final_activation": False}, seed=cfg["seed"]),
+            n_swap=c["n_swap"], swap_w=c["swap_w"], swap_h=c["swap_h"], swap_rotate=c["rotate"],
+            **tr)
+    if kind == "global":
+        return Contrastive(build_encoder(cfg), tau=cfg["tau"], **tr)
+    lc = cfg["local"]
+    t = Contrastive(build_partial_unet(cfg), is_global=False, tau=lc["tau"], K=lc["K"],
+                    n_region=lc["n_region"], **tr)
+    t.transfer_weights(build_encoder(cfg).state_dict(), freeze=True)
+    return t
+
+
+def _ssl_hold_run(kind: str, cfg: dict, dev, x, inject, threads: int) -> dict:
+    """Three steps on one batch with the randomness injected (the
+    patch-swap geometry; two fixed views and the region cells): the losses
+    and the weights after."""
+    torch.set_num_threads(threads)
+    t = _ssl_trainer(kind, cfg, dev, len(x), n_epoch=3)
+    if kind == "cr":
+        swap = t.corrupt
+        t.corrupt = lambda g, b: swap.apply(b, tuple(a.to(b.device) for a in inject))
+    else:
+        t.aug = _TwoViews()
+    orig = losses_mod.sample_region_cells
+    if kind == "local":
+        losses_mod.sample_region_cells = lambda g, b, n, r: inject.to(g.device)
+    try:
+        t.train(x.device_cache(t.device))
+    finally:
+        losses_mod.sample_region_cells = orig
+    return {"losses": [row[1] for row in t.outputs["train"]["evolution"]],
+            "params": torch.cat([p.detach().flatten().cpu() for p in t.net.parameters()]),
+            "frozen": {k: v.detach().cpu() for k, v in t.net.state_dict().items() if k in t.frozen},
+            "lrs": [t.state.schedule(i) for i in range(3)]}
+
+
+def _patch_swap(cfg: dict) -> T.RandomPatchSwap:
+    c = cfg["corruption"]
+    return T.RandomPatchSwap(n=c["n_swap"], w=c["swap_w"], h=c["swap_h"], rotate=c["rotate"])
+
+
+def _ssl_holds(cfgs: dict, data) -> None:
+    """(c) card against CPU with TF32 off: three steps of each trainer,
+    held against the CPU's own spread across thread counts and Adam's
+    bound; the patch swap, the blur and the crop-resize warp at the
+    configs' batch and size."""
+    torch.backends.cudnn.allow_tf32 = False
+    n = torch.get_num_threads()
+    x = LabeledSliceDataset(data.images[:SSL_HOLD_BATCH], data.labels[:SSL_HOLD_BATCH])
+    size = tuple(data.images.shape[1:3])
+    gen = torch.Generator().manual_seed(SEED)
+    lc = cfgs["con"]["local"]
+    side = size[0] // 2 ** (cfgs["con"]["net"]["depth"] - 1 - lc["n_decoder"]) // lc["K"]
+    injected = {"cr": _patch_swap(cfgs["cr"]).draw_geometry(gen, len(x), size), "global": None,
+                "local": torch.argsort(torch.rand((len(x), side * side), generator=gen),
+                                       dim=1)[:, :lc["n_region"]]}
+    for kind, cfg in (("cr", cfgs["cr"]), ("global", cfgs["con"]), ("local", cfgs["con"])):
+        card = _ssl_hold_run(kind, cfg, DEV, x, injected[kind], n)
+        cpu = _ssl_hold_run(kind, cfg, "cpu", x, injected[kind], n)
+        ref = _ssl_hold_run(kind, cfg, "cpu", x, injected[kind], max(1, n // 2))
+        torch.set_num_threads(n)
+        loss1 = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+        traj = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        traj_ref = max(abs(a - b) / abs(b) for a, b in zip(ref["losses"], cpu["losses"]))
+        d = (card["params"] - cpu["params"]).abs()
+        bound = 2 * 1.005 * sum(cpu["lrs"]) + 1e-6
+        frozen_eq = all(torch.equal(v, cpu["frozen"][k]) for k, v in card["frozen"].items())
+        print(f"ssl {kind} step hold, full width, batch {len(x)} of {size}, TF32 off, card vs cpu "
+              f"({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): step-1 loss "
+              f"rel diff {loss1!r} (tolerance 1e-5); losses over 3 steps card {card['losses']!r} "
+              f"cpu {cpu['losses']!r}, max rel diff {traj!r} (reference {traj_ref!r}, tolerance "
+              f"max(2e-4, 10x the reference)); weights max |diff| {float(d.max())!r}, share within "
+              f"1e-4 {float((d <= 1e-4).float().mean())!r} (tolerance: all within {bound!r}, "
+              f"Adam's bound); {len(card['frozen'])} frozen parameters equal {frozen_eq}")
+        check(loss1 <= 1e-5 and traj <= max(2e-4, 10 * traj_ref),
+              f"ssl {kind}: card and cpu losses disagree")
+        check(float(d.max()) <= bound and frozen_eq, f"ssl {kind}: card and cpu weights disagree")
+
+    b = cfgs["cr"]["train"]["batch_size"]
+    imgs = torch.from_numpy(data.images[:b, ..., None])
+    swap = _patch_swap(cfgs["cr"])
+    geom = swap.draw_geometry(gen, b, size)
+    swap_eq = torch.equal(swap.apply(imgs.to(DEV), tuple(g.to(DEV) for g in geom)).cpu(),
+                          swap.apply(imgs, geom))
+    blur = T.GaussianBlur(0.5, (0.1, 2.0))
+    flags, sig = blur.draw(gen, b)
+    blur_err = float((blur.apply_params(imgs.to(DEV), flags.to(DEV), sig.to(DEV)).cpu()
+                      - blur.apply_params(imgs, flags, sig)).abs().max())
+    crop = T.RandomCropResize((0.4, 0.8))
+    m, o = crop.affine_params(gen, b, size)
+    crop.affine_params = lambda g, bb, hw: (m.to(g.device), o.to(g.device))
+    crop_err = float((crop(torch.Generator(device=DEV), imgs.to(DEV)).cpu()
+                      - crop(torch.Generator(), imgs)).abs().max())
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"ssl transforms card vs cpu at {tuple(imgs.shape)}: RandomPatchSwap with injected "
+          f"geometry equal {swap_eq}; GaussianBlur with injected draws max err {blur_err!r}; "
+          f"RandomCropResize with injected (m, o) max err {crop_err!r} (tolerance 1e-5)")
+    check(swap_eq and blur_err <= 1e-5 and crop_err <= 1e-5, "ssl: card and cpu transforms disagree")
+
+
+def _ssl_warm_ms(t, state, batches: list, n: int = 10) -> float:
+    """Mean ms of ``n`` steps over ``batches`` after three warm-up steps
+    (cuDNN picks its algorithms), the peak memory counter reset after the
+    warm-up."""
+    for i in range(3):
+        t._train_step(state, batches[i % len(batches)], i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(n):
+        t._train_step(state, batches[i % len(batches)], 3 + i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _ssl_step_times(cfgs: dict, data) -> dict:
+    """(d) warm ms per step of each ``SSL_TIMED`` cell (TF32 on), FLOPs and
+    their rate, peak memory; returns the warm (trainer, state, batch) of
+    context restoration and of global contrastive by kind."""
+    torch.backends.cudnn.allow_tf32 = True
+    cached = data.device_cache(DEV)
+    warm = {}
+    for cell, kind, bs in SSL_TIMED:
+        t = _ssl_trainer(kind, cfgs["cr" if kind == "cr" else "con"], DEV, bs)
+        state = t._train_state(max(1, len(data) // bs))
+        plan = np.random.default_rng(SEED).integers(0, len(data), size=(4, bs))
+        batches = list(t._batches(cached.images, list(plan)))
+        t.net.train()
+        ms = _ssl_warm_ms(t, state, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as fc:
+            t._train_step(state, batches[0], 99)
+        flops = fc.get_total_flops()
+        tflops = flops / ms / 1e9
+        print(f"{cell}: batch {bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} "
+              f"ms/step = {bs / ms * 1e3!r} slices/s; {flops / 1e12!r} TFLOP per step "
+              f"(FlopCounterMode: forward{'s' if kind != 'cr' else ''} and backward) = "
+              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"peak device memory {peak!r} GiB")
+        if kind in ("cr", "global"):
+            warm[kind] = (t, state, batches[0])
+        else:
+            t.net.eval()
+            del t, state, batches
+            torch.cuda.empty_cache()
+    # a layout probe (the trainer is unchanged): the blur leaves each view
+    # with NCHW strides, so cuDNN runs the global net NCHW, where context
+    # restoration's corrupted batch (a slice of the padded buffer) has
+    # channels-last strides; the global step again with each view copied to
+    # fresh (B, H, W, 1) strides, which are channels-last as (B, 1, H, W)
+    t, state, batch = warm["global"]
+    aug = t.aug
+    t.aug = lambda g, x: aug(g, x).clone(memory_format=torch.contiguous_format)
+    ms = _ssl_warm_ms(t, state, [batch])
+    t.aug = aug
+    print(f"ssl_contrastive_global_bs64 layout probe, the views with channels-last strides: "
+          f"{ms!r} ms/step")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"ssl nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+OP_GROUPS_SSL = OP_GROUPS_TRAIN + (("swap gather/scatter", ("index",)),)
+SSL_RANGES = ("corrupt", "views", "net", "loss", "Optimizer.step#Adam.step")
+
+
+def _ssl_profile(t, state, batch) -> None:
+    """(e) one warm step under torch.profiler."""
+    label = "context-restoration" if isinstance(t, ContextRestoration) else "global contrastive"
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._train_step(state, batch, 200)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t.net.eval()
+    print(_profile_summary(prof, wall_ms, f"ssl profile (one warm {label} step, batch "
+                           f"{t.batch_size}, TF32 on)", OP_GROUPS_SSL, SSL_RANGES))
+
+
+def phase_ssl(work: str) -> None:
+    cfgs = {"cr": load_ssl_cfg(CR_CFG, work), "con": load_ssl_cfg(CON_CFG, work)}
+    data = _rsna_data(cfgs["cr"], work)
+    weights = _ssl_cr_driver(cfgs["cr"], data)
+    t = _ssl_trainer("cr", cfgs["cr"], DEV, cfgs["cr"]["train"]["batch_size"])
+    t.net.load_state_dict(weights)
+    t0 = time.perf_counter()
+    feats = t.bottleneck_features(data)
+    torch.cuda.synchronize()
+    print(f"ssl bottleneck_features of {len(data)} slices: {feats.shape} in "
+          f"{time.perf_counter() - t0!r} s")
+    check(feats.shape[0] == len(data) and np.isfinite(feats).all(), "ssl: bottleneck features")
+    del t
+    _ssl_contrastive_driver(cfgs["con"], data)
+    torch.cuda.empty_cache()
+    _ssl_holds(cfgs, data)
+    warm = _ssl_step_times(cfgs, data)
+    _ssl_profile(*warm["cr"])
+    _ssl_profile(*warm["global"])
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -1237,6 +1640,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train3d_") as work:
         phase_train3d(rng, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as work:
+        phase_ssl(work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

@@ -1,7 +1,7 @@
 """Dataset containers and batch plans, copied from ``ich_tpu/data/core.py``
 (importing ``ich_tpu.data`` imports jax): ``batch_indices``,
-``SliceDataset2D`` (its ``device_cache`` moves the arrays to a torch
-device) and ``VolumeDataset3D``."""
+``SliceDataset2D`` and ``LabeledSliceDataset`` (their ``device_cache``
+moves the arrays to a torch device) and ``VolumeDataset3D``."""
 
 from __future__ import annotations
 
@@ -93,6 +93,36 @@ class SliceDataset2D:
             return torch.as_tensor(x).to(device)
 
         return SliceDataset2D(to(self.images), to(self.masks), self.vol_ids, self.slice_nbrs)
+
+
+@dataclasses.dataclass
+class LabeledSliceDataset:
+    """Slices + labels for SSL and classification pretraining: images
+    (N, H, W[, C]) float32, labels (N,) int or (N, K) multilabel float, the
+    schema of the reference's RSNA modes (``datasets.py:320-422``). Images
+    are a numpy array, or a torch tensor after :meth:`device_cache`; labels
+    stay numpy."""
+
+    images: np.ndarray
+    labels: np.ndarray
+
+    def __post_init__(self):
+        self.images = _as_f32(self.images)
+        self.labels = np.asarray(self.labels)
+        if len(self.images) != len(self.labels):
+            raise ValueError("images/labels lengths differ")
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    @property
+    def image_shape(self) -> Tuple[int, ...]:
+        return tuple(self.images.shape[1:])
+
+    def device_cache(self, device: str | torch.device) -> "LabeledSliceDataset":
+        """Images as a tensor on ``device``; batches are then gathered on the
+        device."""
+        return LabeledSliceDataset(torch.as_tensor(self.images).to(device), self.labels)
 
 
 @dataclasses.dataclass

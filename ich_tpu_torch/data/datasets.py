@@ -1,17 +1,28 @@
-"""Dataset loaders (counterpart of :mod:`ich_tpu.data.datasets`; only the
-3D SegICH loader is ported so far)."""
+"""Dataset loaders (counterpart of :mod:`ich_tpu.data.datasets`): the 3D
+SegICH loader, the RSNA slice loader of SSL pretraining, and the RSNA
+label pivot of ``scripts/data_preparation.py gen-rsna-csv`` as a function.
+CSVs go through the ``csv`` module: the loaders need no pandas."""
 
 from __future__ import annotations
 
+import csv
 import os
-from typing import Sequence, Tuple
+from collections import defaultdict
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ich_tpu_torch.data import nifti
-from ich_tpu_torch.data.core import VolumeDataset3D
+from ich_tpu_torch.data.core import LabeledSliceDataset, VolumeDataset3D
+from ich_tpu_torch.data.dicom import read_ct_hu
+from ich_tpu_torch.data.segich import _resize_host
 from ich_tpu_torch.ops.ct import _resampled_shape, resample_ct, resize_nearest_zoom, window_ct
+
+RSNA_LABEL_COLUMNS = ("Hemorrhage", "epidural", "intraparenchymal", "intraventricular",
+                      "subarachnoid", "subdural", "no_Hemorrhage")
+# the corrupted stage-2 slice, which the reference means to drop (generate_RSNA_csv.py:44)
+RSNA_CORRUPT_FILE = "ID_6431af929.dcm"
 
 
 def load_segich_3d(
@@ -40,3 +51,113 @@ def load_segich_3d(
         masks.append(np.transpose(m.numpy(), (2, 0, 1)))
         ids.append(pid)
     return VolumeDataset3D(vols, masks, np.asarray(ids))
+
+
+def _number(text: str):
+    """A CSV cell as pandas reads it: an int, else a float, else NaN."""
+    try:
+        return int(text)
+    except ValueError:
+        return float(text) if text.strip() else float("nan")
+
+
+def write_rsna_slice_info(label_csv: str, out_csv: str) -> int:
+    """Pivot the RSNA stage-2 label csv (``ID,Label`` rows, ``ID =
+    <sop>_<subtype>``) to one multilabel row per slice and write it as
+    ``scripts/data_preparation.py gen-rsna-csv`` does with pandas:
+
+    - rows per ``sop`` in sorted order, one column per subtype in sorted
+      order, each the max over duplicated rows; ``any`` renamed
+      ``Hemorrhage`` (a column of 0 when the csv has no ``any`` rows);
+    - then ``filename`` (``<sop>.dcm``) and ``no_Hemorrhage = 1 -
+      Hemorrhage``; ``ID_6431af929.dcm`` dropped;
+    - the leading index column keeps each row's place before the drop;
+      where a slice lacks a subtype the cell is empty and every label is
+      written as a float, as pandas' ``unstack`` makes it.
+
+    Returns the number of rows written."""
+    table: Dict[str, Dict[str, object]] = defaultdict(dict)
+    with open(label_csv, newline="") as f:
+        for row in csv.DictReader(f):
+            sop, subtype = row["ID"].rsplit("_", 1)
+            value = _number(row["Label"])
+            old = table[sop].get(subtype)
+            table[sop][subtype] = value if old is None else max(old, value)
+    sops = sorted(table)
+    subtypes = sorted({st for labels in table.values() for st in labels})
+    holes = any(st not in table[sop] for sop in sops for st in subtypes)
+
+    def cell(v) -> str:
+        if v is None or v != v:  # missing, NaN
+            return ""
+        return repr(float(v)) if holes else str(v)
+
+    names = ["Hemorrhage" if st == "any" else st for st in subtypes]
+    header = [""] + ["sop"] + names + ["filename"]
+    if "any" not in subtypes:
+        header.append("Hemorrhage")
+    header.append("no_Hemorrhage")
+    n = 0
+    with open(out_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        for i, sop in enumerate(sops):
+            if sop + ".dcm" == RSNA_CORRUPT_FILE:
+                continue
+            labels = table[sop]
+            row = [i, sop] + [cell(labels.get(st)) for st in subtypes] + [sop + ".dcm"]
+            if "any" in subtypes:
+                h = labels.get("any")
+                row.append(cell(None if h is None else 1 - h))
+            else:
+                row += [0, 1]
+            w.writerow(row)
+            n += 1
+    return n
+
+
+def read_slice_info(path: str) -> List[Dict[str, str]]:
+    """The rows of a ``slice_info.csv`` as dicts of strings (the leading
+    index column dropped)."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        r.pop("", None)
+    return rows
+
+
+def load_rsna_slices(
+    data_dir: str,
+    slice_df=None,
+    window: Tuple[float, float] = (50, 200),
+    size: int = 256,
+    n_max: Optional[int] = None,
+    label_columns: Sequence[str] = RSNA_LABEL_COLUMNS,
+) -> LabeledSliceDataset:
+    """RSNA DICOM slices and their 7-way multilabel vectors (the reference's
+    ``RSNA_dataset``, ``datasets.py:320-422``): each ``filename`` under
+    ``data_dir`` read to HU, windowed, resized to ``size`` (scipy zoom,
+    order 1). ``slice_df`` is the pivot's rows (a list of mappings, or
+    anything with pandas' ``to_dict("records")``); None reads
+    ``<data_dir>/slice_info.csv``. A label column the rows lack is 0. Runs on
+    the CPU; returns numpy arrays."""
+    if slice_df is None:
+        rows: List[Mapping] = read_slice_info(os.path.join(data_dir, "slice_info.csv"))
+    elif hasattr(slice_df, "to_dict"):
+        rows = slice_df.to_dict("records")
+    else:
+        rows = list(slice_df)
+    if n_max is not None:
+        rows = rows[:n_max]
+    n = len(rows)
+    images = np.zeros((n, size, size), dtype=np.float32)
+    labels = np.zeros((n, len(label_columns)), dtype=np.float32)
+    for i, row in enumerate(rows):
+        hu = read_ct_hu(os.path.join(data_dir, str(row["filename"])))
+        img = window_ct(torch.from_numpy(hu), window[0], window[1]).numpy()
+        images[i] = _resize_host(img, size, order=1)
+        for j, col in enumerate(label_columns):
+            if col in row:
+                v = row[col]
+                labels[i, j] = _number(v) if isinstance(v, str) else float(v)
+    return LabeledSliceDataset(images, labels)

@@ -1,15 +1,20 @@
 """Synthetic head-CT-like slices for tests and the on-card smoke run,
-copied from ``ich_tpu/data/synthetic.py`` (``_lesion_mask_2d`` and
-``synthetic_ich_slices``; importing ``ich_tpu.data`` imports jax): a
-skull-like bright ring, brain-tissue texture, and ellipsoidal hyperdense
-"hemorrhage" lesions with matching masks, the same arrays for the same
-seed as the JAX package's."""
+copied from ``ich_tpu/data/synthetic.py`` (``_lesion_mask_2d``,
+``synthetic_ich_slices``, ``synthetic_rsna_slices`` and ``write_rsna_tree``;
+importing ``ich_tpu.data`` imports jax): a skull-like bright ring,
+brain-tissue texture, and ellipsoidal hyperdense "hemorrhage" lesions with
+matching masks, the same arrays and files for the same seed as the JAX
+package's."""
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 
-from ich_tpu_torch.data.core import SliceDataset2D
+from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
+from ich_tpu_torch.data.dicom import write_minimal_dicom
 
 
 def _lesion_mask_2d(
@@ -86,3 +91,72 @@ def synthetic_ich_slices(
         images[i] = np.clip(img, 0.0, 1.0)
         masks[i] = lesion
     return SliceDataset2D(images, masks, vol_ids, slice_nbrs)
+
+
+def synthetic_rsna_slices(
+    n_slices: int = 128, size: int = 64, seed: int = 0, positive_frac: float = 0.4
+) -> LabeledSliceDataset:
+    """Slices with 7-way multilabel vectors in the pivot's column order
+    (column 0 Hemorrhage, 1-5 one subtype per positive slice, 6
+    no_Hemorrhage); ``labels[:, 0]`` is the binary target."""
+    ds = synthetic_ich_slices(
+        n_slices=n_slices, size=size, n_volumes=max(1, n_slices // 8),
+        seed=seed, positive_frac=positive_frac,
+    )
+    rng = np.random.default_rng(seed + 1)
+    has_ich = (ds.masks.reshape(n_slices, -1).max(axis=1) > 0).astype(np.float32)
+    subtype = rng.integers(0, 5, size=n_slices)
+    labels = np.zeros((n_slices, 7), dtype=np.float32)
+    labels[:, 0] = has_ich
+    labels[:, 6] = 1.0 - has_ich
+    for i in range(n_slices):
+        if has_ich[i]:
+            labels[i, 1 + subtype[i]] = 1.0
+    return LabeledSliceDataset(ds.images, labels)
+
+
+def write_rsna_tree(out_dir: str, n_slices: int = 12, size: int = 32, seed: int = 0) -> str:
+    """An RSNA stage-2 tree on disk:
+
+    - ``stage_2_train/ID_<sop>.dcm`` CT slices (explicit-VR LE, slope 1 /
+      intercept -1024, as the real export),
+    - ``stage_2_train.csv`` in the long label format (``ID,Label``, ``ID =
+      ID_<sop>_<subtype>``, 6 rows per slice) with the real file's quirks:
+      duplicated label rows and the corrupted ``ID_6431af929`` entry.
+
+    Returns the label csv's path; :func:`ich_tpu_torch.data.datasets.
+    write_rsna_slice_info` pivots it to the ``slice_info.csv`` that
+    ``load_rsna_slices`` reads."""
+    subtypes = ["any", "epidural", "intraparenchymal", "intraventricular",
+                "subarachnoid", "subdural"]
+    rng = np.random.default_rng(seed)
+    ds = synthetic_ich_slices(n_slices=n_slices, size=size, seed=seed)
+    dcm_dir = os.path.join(out_dir, "stage_2_train")
+    os.makedirs(dcm_dir, exist_ok=True)
+    rows = []
+    for i in range(n_slices):
+        sop = f"{seed:03x}{i:06x}"
+        hu = ds.images[i] * 200.0 - 50.0  # back to a HU-like range
+        write_minimal_dicom(
+            os.path.join(dcm_dir, f"ID_{sop}.dcm"),
+            np.round(hu + 1024.0).astype(np.int16),  # stored + intercept
+            slope=1.0, intercept=-1024.0,
+            position=(0.0, 0.0, float(i) * 5.0),
+        )
+        has_ich = int(ds.masks[i].max() > 0)
+        labels = {"any": has_ich}
+        sub = subtypes[1 + int(rng.integers(0, 5))]
+        for st in subtypes[1:]:
+            labels[st] = has_ich if st == sub else 0
+        for st in subtypes:
+            rows.append((f"ID_{sop}_{st}", labels[st]))
+        if i % 3 == 0:  # the stage-2 csv contains duplicated rows
+            rows.append((f"ID_{sop}_any", labels["any"]))
+    # the corrupted slice: labels present, no readable pixel data
+    for st in subtypes:
+        rows.append((f"ID_6431af929_{st}", 0))
+    with open(os.path.join(out_dir, "stage_2_train.csv"), "w", newline="") as f:
+        wtr = csv.writer(f)
+        wtr.writerow(["ID", "Label"])
+        wtr.writerows(rows)
+    return os.path.join(out_dir, "stage_2_train.csv")

@@ -49,8 +49,8 @@ def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0) -> UN
     """The config's U-Net, its weights drawn from ``seed`` (torch's global
     generator is left as it was)."""
     if net_cfg.get("gated", False):
-        raise NotImplementedError("the gated U-Net is not ported yet: it comes with the SSL "
-                                  "slice of the port (ROADMAP.md §1)")
+        raise NotImplementedError("the gated U-Net is not ported yet: it comes with the "
+                                  "anomaly-detection slice of the port (ROADMAP.md §1)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         return UNet(

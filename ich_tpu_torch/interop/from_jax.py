@@ -1,9 +1,11 @@
-"""Convert the JAX package's U-Net variables to a port ``state_dict``.
+"""Convert the JAX package's U-Net family variables to port ``state_dict``s.
 
-The inverse of ``ich_tpu.interop.torch_port.port_unet``: flax variables
-``{"params": ..., "batch_stats": ...}`` of :class:`ich_tpu.models.UNet`, as
-plain numpy nests, become ``{torch key: numpy array}`` for
-:class:`ich_tpu_torch.models.unet.UNet`. Layouts converted:
+The inverse of ``ich_tpu.interop.torch_port``'s ``port_unet``,
+``port_unet_encoder`` and ``port_partial_unet``: flax variables
+``{"params": ..., "batch_stats": ...}`` of :class:`ich_tpu.models.UNet`,
+``UNetEncoder`` or ``PartialUNet``, as plain numpy nests, become ``{torch
+key: numpy array}`` for their counterparts in
+:mod:`ich_tpu_torch.models.unet`. Layouts converted:
 
 - conv kernels: flax HWIO / DHWIO -> torch OIHW / OIDHW;
 - transposed-conv kernels: flax ``(*k, I, O)`` -> torch ``(I, O, *k)``, with
@@ -11,7 +13,9 @@ plain numpy nests, become ``{torch key: numpy array}`` for
   computes the conv adjoint);
 - BatchNorm: ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``; GroupNorm: ``scale``/
-  ``bias`` -> ``weight``/``bias``.
+  ``bias`` -> ``weight``/``bias``; a net with ``norm="none"`` has no norm
+  variables and gets no norm keys;
+- Dense kernels: flax ``(I, O)`` -> torch ``(O, I)``.
 
 No JAX import: the inputs are numpy mappings.
 """
@@ -60,8 +64,15 @@ class _Emitter:
         if "bias" in node:
             self.sd[f"{tname}.bias"] = np.asarray(node["bias"])
 
+    def dense(self, fpath: str, tname: str) -> None:
+        node = self._get(self.params, fpath)
+        self.sd[f"{tname}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+        self.sd[f"{tname}.bias"] = np.asarray(node["bias"])
+
     def norm(self, fpath: str, tname: str) -> None:
         node = self._get(self.params, fpath)
+        if not node:  # norm="none": the identity holds no variables
+            return
         self.sd[f"{tname}.weight"] = np.asarray(node["scale"])
         self.sd[f"{tname}.bias"] = np.asarray(node["bias"])
         stats = self._get(self.stats, fpath)
@@ -77,19 +88,46 @@ class _Emitter:
             self.norm(f"{fprefix}/bn{i}/norm", f"{tprefix}.bn{i}")
 
 
+    def encoder(self) -> None:
+        enc = self.params["encoder"]
+        for i in range(sum(1 for k in enc if k.startswith("down_"))):
+            self.block(f"encoder/down_{i}", f"down_block.{i}")
+        self.block("encoder/bottleneck", "bottleneck_block")
+
+    def decoder(self) -> None:
+        dec = self.params["decoder"]
+        for i in range(sum(1 for k in dec if k.startswith("up_") and "samp" not in k)):
+            if f"up_samp_{i}" in dec:
+                self.conv(f"decoder/up_samp_{i}/convT", f"up_samp.{i}", weight=convt_weight)
+            self.block(f"decoder/up_{i}", f"up_block.{i}")
+
+
 def unet_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
     """JAX ``UNet`` variables -> port ``UNet`` ``state_dict`` (numpy values).
     Depth, 2D/3D and the upsampling kind are read from the variables."""
     e = _Emitter(variables)
-    enc = e.params["encoder"]
-    n_down = sum(1 for k in enc if k.startswith("down_"))
-    for i in range(n_down):
-        e.block(f"encoder/down_{i}", f"down_block.{i}")
-    e.block("encoder/bottleneck", "bottleneck_block")
-    dec = e.params["decoder"]
-    for i in range(n_down):
-        if f"up_samp_{i}" in dec:
-            e.conv(f"decoder/up_samp_{i}/convT", f"up_samp.{i}", weight=convt_weight)
-        e.block(f"decoder/up_{i}", f"up_block.{i}")
+    e.encoder()
+    e.decoder()
     e.conv("final_conv", "final_conv")
+    return e.sd
+
+
+def unet_encoder_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``UNetEncoder`` variables -> port ``UNetEncoder`` ``state_dict``."""
+    e = _Emitter(variables)
+    e.encoder()
+    head = e.params["mlp_head"]
+    for i in range(len(head)):
+        e.dense(f"mlp_head/fc{i}", f"mlp_head.fc_layers.{i}")
+    return e.sd
+
+
+def partial_unet_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``PartialUNet`` variables -> port ``PartialUNet`` ``state_dict``."""
+    e = _Emitter(variables)
+    e.encoder()
+    e.decoder()
+    head = e.params["conv_head"]
+    for i in range(len(head)):
+        e.conv(f"conv_head/conv{i}", f"final_conv.conv_layers.{i}")
     return e.sd

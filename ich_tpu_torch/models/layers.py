@@ -92,6 +92,14 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                                   self.output_padding, self.groups, self.dilation)
 
 
+class Linear(nn.Linear):
+    def reset_parameters(self) -> None:
+        _flax_reset(self, self.in_features)  # flax Dense: lecun_normal, zero bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *_params_as(self, x))
+
+
 class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x, self.num_groups, *_params_as(self, x), self.eps)
@@ -175,12 +183,14 @@ def normalize_p_dropout(p_dropout: Union[float, Sequence[float]], depth: int) ->
 
 def make_norm(kind: str, channels: int, ndim: int) -> nn.Module:
     """The JAX package's ``Norm``: BatchNorm (eps 1e-5; flax momentum 0.9 is
-    torch momentum 0.1) or GroupNorm as ``FlatGroupNorm`` (eps 1e-6,
-    ``max(1, C // 16)`` groups)."""
+    torch momentum 0.1), GroupNorm as ``FlatGroupNorm`` (eps 1e-6,
+    ``max(1, C // 16)`` groups), or ``"none"``, the identity."""
     if kind == "batch":
         return _BN[ndim](channels, eps=1e-5, momentum=0.1)
     if kind == "group":
         return GroupNorm(max(1, channels // 16), channels, eps=1e-6)
+    if kind == "none":
+        return nn.Identity()
     raise ValueError(f"unknown norm {kind!r}")
 
 
@@ -265,3 +275,35 @@ def upsample_linear(x: torch.Tensor, ndim: int) -> torch.Tensor:
 def up_conv(in_channels: int, out_channels: int, ndim: int) -> nn.Module:
     """The JAX package's ``UpConv``: a transposed conv, kernel 2, stride 2."""
     return _CONVT[ndim](in_channels, out_channels, kernel_size=2, stride=2)
+
+
+class MLPHead(nn.Module):
+    """The JAX package's ``MLPHead``: Linear layers with a ReLU between them
+    (none after the last), ``features`` the size of each layer's output.
+    ``fc_layers.{i}`` are the reference torch head's keys."""
+
+    def __init__(self, in_features: int, features: Sequence[int]):
+        super().__init__()
+        sizes = [in_features] + list(features)
+        self.fc_layers = nn.ModuleList(Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, fc in enumerate(self.fc_layers):
+            x = fc(x) if i == len(self.fc_layers) - 1 else F.relu(fc(x))
+        return x
+
+
+class ConvHead(nn.Module):
+    """The JAX package's ``ConvHead``: 1x1 convs with a ReLU between them
+    (none after the last). ``conv_layers.{i}`` are the reference torch
+    head's keys."""
+
+    def __init__(self, in_channels: int, features: Sequence[int], ndim: int = 2):
+        super().__init__()
+        sizes = [in_channels] + list(features)
+        self.conv_layers = nn.ModuleList(_CONV[ndim](a, b, 1) for a, b in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv in enumerate(self.conv_layers):
+            x = conv(x) if i == len(self.conv_layers) - 1 else F.relu(conv(x))
+        return x

@@ -1,10 +1,16 @@
-"""2D/3D U-Net (counterpart of :class:`ich_tpu.models.unet.UNet`).
+"""The U-Net family (counterpart of :mod:`ich_tpu.models.unet`): the 2D/3D
+``UNet``, the encoder with an MLP head (``UNetEncoder``, global contrastive
+pretraining) and the encoder with the first decoder stages and a 1x1-conv
+head (``PartialUNet``, local contrastive pretraining).
 
-Channels-first. Submodules carry the reference torch network's
+Channels-first. Submodules carry the reference torch networks'
 ``state_dict`` keys (``down_block.{i}``, ``bottleneck_block``,
-``up_samp.{i}``, ``up_block.{i}``, ``final_conv``), so
-``ich_tpu.interop.torch_port.port_unet`` maps a port ``state_dict`` to the
-JAX package's variables unchanged.
+``up_samp.{i}``, ``up_block.{i}``, ``final_conv``, ``mlp_head.fc_layers.{i}``,
+``final_conv.conv_layers.{i}``), so ``ich_tpu.interop.torch_port``'s
+``port_unet`` / ``port_unet_encoder`` / ``port_partial_unet`` map a port
+``state_dict`` to the JAX package's variables unchanged, and a pretrained
+encoder or partial net moves into a ``UNet`` by key intersection
+(:func:`ich_tpu_torch.train.checkpoint.transfer_weights`).
 
 ``dtype`` is the compute dtype, as the JAX package's ``UNet(dtype=...)``:
 the input is cast to it, parameters stay float32 and are cast at use
@@ -27,11 +33,14 @@ import torch.nn as nn
 from ich_tpu_torch.models.layers import (
     _CONV,
     ConvBlock,
+    ConvHead,
+    MLPHead,
     max_pool,
     normalize_p_dropout,
     up_conv,
     upsample_linear,
 )
+from ich_tpu_torch.utils.config import NETWORKS
 
 
 def _filter_plan(depth: int, top_filter: int) -> Tuple[list, int, list]:
@@ -43,26 +52,23 @@ def _filter_plan(depth: int, top_filter: int) -> Tuple[list, int, list]:
     return down, bottleneck, up
 
 
-class UNet(nn.Module):
-    """U-Net with ``depth - 1`` down blocks, a bottleneck, ``depth - 1`` up
-    stages (transposed conv or linear upsampling, then the skip concatenated
-    first) and a final 1x1 conv with a float32 sigmoid (one class) or
-    softmax."""
+class _UNetBody(nn.Module):
+    """The encoder (``depth - 1`` down blocks and the bottleneck) and the
+    first ``n_decoder`` up stages (transposed conv or linear upsampling,
+    then the skip concatenated first). Returns the last decoder stage's
+    output (the bottleneck's with ``n_decoder == 0``) and the
+    bottleneck."""
 
-    def __init__(self, depth: int = 5, ndim: int = 2, bilinear: bool = False,
-                 in_channels: int = 1, out_channels: int = 1, top_filter: int = 64,
-                 midchannels_factor: int = 2,
-                 p_dropout: Union[float, Sequence[float]] = 0.5,
-                 use_final_activation: bool = True, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+    def __init__(self, depth: int, ndim: int, bilinear: bool, in_channels: int,
+                 top_filter: int, midchannels_factor: int,
+                 p_dropout: Union[float, Sequence[float]], norm: str,
+                 dtype: torch.dtype, remat: bool, n_decoder: int):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         self.ndim = ndim
         self.dtype = dtype
         self.bilinear = bilinear
-        self.out_channels = out_channels
-        self.use_final_activation = use_final_activation
         p_drop = normalize_p_dropout(p_dropout, depth)
         down, bottleneck, up = _filter_plan(depth, top_filter)
 
@@ -79,16 +85,16 @@ class UNet(nn.Module):
         c = bottleneck
         self.up_samp = nn.ModuleList()
         self.up_block = nn.ModuleList()
-        for i, ch in enumerate(up):
+        for i, ch in enumerate(up[:n_decoder]):
             if not bilinear:
                 self.up_samp.append(up_conv(c, ch, ndim))
                 c = ch
             self.up_block.append(ConvBlock(down[-1 - i] + c, ch, ch, ndim=ndim, norm=norm,
                                            remat=remat))
             c = ch
-        self.final_conv = _CONV[ndim](c, out_channels, 1)
+        self.out_channels_body = c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _body(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.dtype)
         skips = []
         for block in self.down_block:
@@ -96,10 +102,91 @@ class UNet(nn.Module):
             skips.append(x)
             x = max_pool(x, self.ndim)
         x = self.bottleneck_block(x)
+        bottleneck = x
         for i, block in enumerate(self.up_block):
             x = upsample_linear(x, self.ndim) if self.bilinear else self.up_samp[i](x)
             x = block(torch.cat([skips[-1 - i], x], dim=1))
+        return x, bottleneck
+
+
+class UNet(_UNetBody):
+    """U-Net with ``depth - 1`` down blocks, a bottleneck, ``depth - 1`` up
+    stages and a final 1x1 conv with a float32 sigmoid (one class) or
+    softmax. ``forward(x, return_bottleneck=True)`` also returns the
+    bottleneck's features."""
+
+    def __init__(self, depth: int = 5, ndim: int = 2, bilinear: bool = False,
+                 in_channels: int = 1, out_channels: int = 1, top_filter: int = 64,
+                 midchannels_factor: int = 2,
+                 p_dropout: Union[float, Sequence[float]] = 0.5,
+                 use_final_activation: bool = True, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(depth, ndim, bilinear, in_channels, top_filter, midchannels_factor,
+                         p_dropout, norm, dtype, remat, n_decoder=depth - 1)
+        self.out_channels = out_channels
+        self.use_final_activation = use_final_activation
+        self.final_conv = _CONV[ndim](self.out_channels_body, out_channels, 1)
+
+    def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
+        x, bottleneck = self._body(x)
         x = self.final_conv(x).to(torch.float32)
         if self.use_final_activation:
             x = torch.softmax(x, dim=1) if self.out_channels > 1 else torch.sigmoid(x)
-        return x
+        return (x, bottleneck) if return_bottleneck else x
+
+
+class UNetEncoder(_UNetBody):
+    """The encoder, a global average pool and an MLP projection head
+    (``mlp_head`` lists each layer's output size), for global contrastive
+    or classification pretraining. With ``return_bottleneck`` the pooled
+    (B, C) features come second."""
+
+    def __init__(self, depth: int = 5, ndim: int = 2, mlp_head: Sequence[int] = (256, 128),
+                 in_channels: int = 1, top_filter: int = 64, midchannels_factor: int = 2,
+                 p_dropout: Union[float, Sequence[float]] = 0.5, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(depth, ndim, False, in_channels, top_filter, midchannels_factor,
+                         p_dropout, norm, dtype, False, n_decoder=0)
+        self.mlp_head = MLPHead(self.out_channels_body, mlp_head)
+
+    def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
+        _, bottleneck = self._body(x)
+        pooled = bottleneck.mean(dim=tuple(range(2, 2 + self.ndim)))
+        out = self.mlp_head(pooled)
+        return (out, pooled) if return_bottleneck else out
+
+
+class PartialUNet(_UNetBody):
+    """The encoder, the first ``n_decoder`` decoder stages and a 1x1-conv
+    projection head (``head_channel`` lists each conv's output channels),
+    for local contrastive pretraining (Chaitanya 2020)."""
+
+    def __init__(self, depth: int = 5, n_decoder: int = 3, ndim: int = 2,
+                 bilinear: bool = False, head_channel: Sequence[int] = (64, 32),
+                 in_channels: int = 1, top_filter: int = 64, midchannels_factor: int = 2,
+                 p_dropout: Union[float, Sequence[float]] = 0.5, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(depth, ndim, bilinear, in_channels, top_filter, midchannels_factor,
+                         p_dropout, norm, dtype, False, n_decoder=n_decoder)
+        self.final_conv = ConvHead(self.out_channels_body, head_channel, ndim)
+
+    def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
+        x, bottleneck = self._body(x)
+        out = self.final_conv(x)
+        return (out, bottleneck) if return_bottleneck else out
+
+
+# the reference configs' network names (``use_3D`` selects the rank)
+NETWORKS.add("UNet", lambda use_3D=False, **kw: UNet(ndim=3 if use_3D else 2, **kw))
+NETWORKS.add("UNet_Encoder", lambda use_3D=False, MLP_head=(256, 128), **kw: UNetEncoder(
+    ndim=3 if use_3D else 2, mlp_head=tuple(MLP_head), **kw))
+NETWORKS.add("Partial_UNet", lambda use_3D=False, head_channel=(64, 32), **kw: PartialUNet(
+    ndim=3 if use_3D else 2, head_channel=tuple(head_channel), **kw))
+
+
+def _gated_unet(**kw):
+    raise NotImplementedError("the gated U-Net is not ported yet (ROADMAP.md §1, anomaly "
+                              "detection)")
+
+
+NETWORKS.add("GatedUNet", _gated_unet)

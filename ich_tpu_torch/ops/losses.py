@@ -1,15 +1,18 @@
 """Objective functions (counterpart of :mod:`ich_tpu.ops.losses`).
 
 Ported: the segmentation losses (``binary_dice_loss``, ``tversky_loss``,
-``combo_loss``) and DiscountedL1, the caller of the EDT kernel. Layout is
-NHWC, as in the JAX package, and every loss computes in float32. The
-``LOSSES`` registry carries them under the reference's class names.
+``combo_loss``), DiscountedL1, the caller of the EDT kernel, the
+contrastive losses of SSL pretraining (``info_nce_loss``,
+``local_info_nce_loss`` with ``sample_region_cells``) and the
+reconstruction losses (``mse_loss``, ``l1_loss``). Layout is NHWC, as in
+the JAX package, and every loss computes in float32. The ``LOSSES``
+registry carries them under the reference's class names.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -119,6 +122,82 @@ def discounted_l1_loss(
     return _reduce(l1, reduction)
 
 
+def _nt_xent(p: torch.Tensor, n: int, tau: float) -> torch.Tensor:
+    """NT-Xent over the (..., 2n, D) embeddings ``p``, row i's positive the
+    row n away: cosine similarities over ``tau``, the diagonal masked to
+    float32's lowest value, ``logsumexp`` minus the positive, averaged."""
+    p = p.to(torch.float32)
+    pn = p / torch.clamp(torch.linalg.vector_norm(p, dim=-1, keepdim=True), min=1e-8)
+    sim = pn @ pn.transpose(-1, -2) / tau
+    idx = torch.arange(2 * n, device=p.device)
+    pos_idx = torch.where(idx < n, idx + n, idx - n)
+    pos = sim[..., idx, pos_idx]
+    eye = torch.eye(2 * n, dtype=torch.bool, device=p.device)
+    logz = torch.logsumexp(sim.masked_fill(eye, torch.finfo(torch.float32).min), dim=-1)
+    return torch.mean(logz - pos)
+
+
+def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, tau: float = 0.5) -> torch.Tensor:
+    """SimCLR NT-Xent (reference ``LossFunctions.py:168-230``). z1, z2: (N,
+    D) two views; each of the 2N embeddings has its counterpart view as
+    positive and every other embedding in its denominator. The mean over
+    the 2N anchors, the reference's ``CrossEntropyLoss(reduction='sum') /
+    (2N)``. The JAX package's all-gather over a mesh axis is not ported."""
+    return _nt_xent(torch.cat([z1, z2], dim=0), z1.shape[0], tau)
+
+
+def sample_region_cells(gen: torch.Generator, batch: int, grid_cells: int,
+                        n_region: int) -> torch.Tensor:
+    """``n_region`` distinct cells of ``grid_cells`` per batch element,
+    uniformly at random (the first entries of a random permutation per
+    row: the argsort of uniform draws). int64 (batch, n_region) on the
+    generator's device."""
+    u = torch.rand((batch, grid_cells), generator=gen, device=gen.device)
+    return torch.argsort(u, dim=1)[:, :n_region]
+
+
+def local_info_nce_loss(
+    f1: torch.Tensor,
+    f2: torch.Tensor,
+    gen: Optional[torch.Generator],
+    tau: float = 0.5,
+    K: int = 3,
+    n_region: int = 13,
+    cells: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Chaitanya-2020 local contrastive loss (reference
+    ``LossFunctions.py:232-341``), batched. f1, f2: (B, H, W, C) feature
+    maps of the two views. Each map is cut into its grid of KxK cells (the
+    bottom and right strips that do not fill a cell dropped), ``n_region``
+    cells are picked per batch element (the same in both views; drawn from
+    ``gen`` unless ``cells`` (B, n_region) is given), each flattened to
+    K*K*C in (y, x, C) order, and an NT-Xent runs over the 2 * n_region
+    regions within each batch element."""
+    b, h, w, c = f1.shape
+    gh, gw = h // K, w // K
+    if gh * gw < n_region:
+        raise ValueError(
+            f"local_info_nce_loss: feature grid {gh}x{gw} has fewer cells "
+            f"than n_region={n_region}; shrink n_region or K.")
+    if cells is None:
+        cells = sample_region_cells(gen, b, gh * gw, n_region)
+
+    def regions(f):
+        f = f[:, : gh * K, : gw * K, :]
+        f = f.reshape(b, gh, K, gw, K, c).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, K * K * c)
+        return torch.gather(f, 1, cells[:, :, None].expand(b, n_region, K * K * c))
+
+    return _nt_xent(torch.cat([regions(f1), regions(f2)], dim=1), n_region, tau)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    return _reduce((pred.to(torch.float32) - target.to(torch.float32)) ** 2, reduction)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    return _reduce(torch.abs(pred.to(torch.float32) - target.to(torch.float32)), reduction)
+
+
 def _factory(fn: Callable, **defaults) -> Callable:
     def make(**kwargs):
         cfg = {**defaults, **kwargs}
@@ -131,4 +210,10 @@ def _factory(fn: Callable, **defaults) -> Callable:
 LOSSES.add("BinaryDiceLoss", _factory(binary_dice_loss))
 LOSSES.add("TverskyLoss", _factory(tversky_loss))
 LOSSES.add("ComboLoss", _factory(combo_loss))
+LOSSES.add("InfoNCELoss",
+           lambda set_size=None, tau=0.5, **kw: functools.partial(info_nce_loss, tau=tau))
+LOSSES.add("LocalInfoNCELoss", lambda tau=0.5, K=3, n_region=13, **kw: functools.partial(
+    local_info_nce_loss, tau=tau, K=K, n_region=n_region))
 LOSSES.add("DiscountedL1", _factory(discounted_l1_loss))
+LOSSES.add("MSELoss", _factory(mse_loss))
+LOSSES.add("L1Loss", _factory(l1_loss))

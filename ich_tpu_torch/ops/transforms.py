@@ -6,28 +6,32 @@ consecutive geometric transforms into one affine warp, which the image
 (order 1) and the mask (order 0) share. Out-of-bounds samples are 0, as
 scipy's defaults.
 
-Ported: the affine transforms of ``configs/unet2d.json`` (``Translate``,
-``Rotate``, ``Scale``, ``HFlip``) and ``VFlip``, and the photometric
-``AdjustBrightness`` and ``AdjustContrast`` (rank-agnostic, so the 3D patch
-augmentation of :mod:`ich_tpu_torch.ops.transforms3d` uses them too). The
-others are registered under their names by the SSL slice; until then
-:func:`build_pipeline` raises a ``KeyError`` naming it.
+Every name of the JAX package's ``TRANSFORMS`` registry is here: the affine
+transforms (``Translate``, ``Rotate``, ``Scale``, ``HFlip``, ``VFlip`` and
+the SSL views' ``RandomCropResize``), the photometric ``AdjustBrightness``
+and ``AdjustContrast`` (rank-agnostic, so the 3D patch augmentation of
+:mod:`ich_tpu_torch.ops.transforms3d` uses them too), ``GaussianBlur``,
+``Resize``, ``RandomZCrop``, ``ToTensor`` (alias ``ToTorchTensor``) and the
+context-restoration corruption ``RandomPatchSwap``.
+
+A random transform draws its parameters in one method and applies given
+parameters in another, so that a test can inject the JAX package's draws:
+``affine_params`` for the affine ones, then ``apply_factors``
+(photometric), ``apply_params`` (blur), ``crop`` (z crop) and
+``draw_geometry`` / ``apply`` (patch swap).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
+from ich_tpu_torch.ops import ct
 from ich_tpu_torch.ops.warp import affine_warp, compose_affine, identity_affine
 from ich_tpu_torch.utils.config import TRANSFORMS
-
-NOT_PORTED = (
-    "RandomCropResize", "Resize", "GaussianBlur", "RandomZCrop", "ToTensor", "ToTorchTensor",
-    "RandomPatchSwap",
-)
 
 
 def _ensure_batched(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -36,8 +40,9 @@ def _ensure_batched(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return x, False
 
 
-def _uniform(gen: torch.Generator, batch: int, low: float, high: float) -> torch.Tensor:
-    """``batch`` draws uniform on [low, high), as ``jax.random.uniform``."""
+def _uniform(gen: torch.Generator, batch, low: float, high: float) -> torch.Tensor:
+    """Draws of shape ``batch`` (an int or a tuple) uniform on [low, high),
+    as ``jax.random.uniform``."""
     u = torch.rand(batch, generator=gen, device=gen.device, dtype=torch.float32)
     return low + (high - low) * u
 
@@ -148,6 +153,131 @@ class VFlip(HFlip):
     axis = 0
 
 
+class RandomCropResize(AffineTransform):
+    """torchvision ``RandomResizedCrop`` (reference ``transforms.py:541-632``):
+    an area scale and a log-uniform aspect ratio, 10 tries, the first that
+    fits taken, else the central crop of the whole image clamped to the
+    ratio bounds; the crop resized back to the input size, as one affine map
+    (half-pixel centres) that fuses with the rest of a :class:`Compose`."""
+
+    def __init__(self, crop_scales=(0.08, 1.0), crop_ratios=(3 / 4, 4 / 3)):
+        self.crop_scales = tuple(crop_scales)
+        self.crop_ratios = tuple(crop_ratios)
+
+    def affine_params(self, gen, batch, hw):
+        height, width = hw
+        tries = 10
+        target_area = _uniform(gen, (batch, tries), *self.crop_scales) * (height * width)
+        log_r = _uniform(gen, (batch, tries), math.log(self.crop_ratios[0]),
+                         math.log(self.crop_ratios[1]))
+        ar = torch.exp(log_r)
+        ws = torch.round(torch.sqrt(target_area * ar))
+        hs = torch.round(torch.sqrt(target_area / ar))
+        ok = (ws > 0) & (ws <= width) & (hs > 0) & (hs <= height)
+        first = torch.argmax(ok.to(torch.uint8), dim=1, keepdim=True)  # the first try that fits
+        any_ok = ok.any(dim=1)
+        in_ratio = width / height
+        if in_ratio < min(self.crop_ratios):
+            fw, fh = width, round(width / min(self.crop_ratios))
+        elif in_ratio > max(self.crop_ratios):
+            fh, fw = height, round(height * max(self.crop_ratios))
+        else:
+            fw, fh = width, height
+        w = torch.where(any_ok, ws.gather(1, first)[:, 0], float(fw))
+        h = torch.where(any_ok, hs.gather(1, first)[:, 0], float(fh))
+        iy = torch.floor(torch.rand(batch, generator=gen, device=gen.device) * (height - h + 1))
+        jx = torch.floor(torch.rand(batch, generator=gen, device=gen.device) * (width - w + 1))
+        iy = torch.where(any_ok, iy, torch.div(height - h, 2, rounding_mode="floor"))
+        jx = torch.where(any_ok, jx, torch.div(width - w, 2, rounding_mode="floor"))
+        # y_in = (y_out + 0.5) h / H - 0.5 + iy, written about the centre
+        sy, sx = h / height, w / width
+        z = torch.zeros_like(sy)
+        cy, cx = (height - 1) / 2.0, (width - 1) / 2.0
+        oy = (cy + 0.5) * sy - 0.5 + iy - cy
+        ox = (cx + 0.5) * sx - 0.5 + jx - cx
+        return _matrix(sy, z, z, sx), torch.stack([oy, ox], dim=1)
+
+    def __str__(self):
+        return (f"RandomCropResize(crop_scales={self.crop_scales}, "
+                f"crop_ratios={self.crop_ratios})")
+
+
+class Resize(Transform):
+    """Resize to (H, W): order 1 (antialiased linear, as
+    :func:`ich_tpu_torch.ops.ct.resize`) for the image, order 0 for the mask
+    (reference ``transforms.py:117-156``)."""
+
+    def __init__(self, H: int = 256, W: int = 256):
+        self.H, self.W = H, W
+
+    def __call__(self, gen, image, mask=None):
+        img_b, sq = _ensure_batched(image)
+        out = ct.resize(img_b, (img_b.shape[0], self.H, self.W) + tuple(img_b.shape[3:]), order=1)
+        out = out[0] if sq else out
+        if mask is None:
+            return out
+        mask_b, _ = _ensure_batched(mask)
+        mout = ct.resize(mask_b, (mask_b.shape[0], self.H, self.W) + tuple(mask_b.shape[3:]),
+                         order=0)
+        return out, (mout[0] if sq else mout)
+
+    def __str__(self):
+        return f"Resize(H={self.H}, W={self.W})"
+
+
+class GaussianBlur(Transform):
+    """Random Gaussian blur with a sigma per sample (reference
+    ``transforms.py:400-443``, ``skimage.filters.gaussian``): with
+    probability ``p`` a sample is blurred by a normalised kernel of one
+    fixed radius, ``ceil(4 max sigma)`` (17 taps at the default range), as
+    two separable passes with edge padding; the whole batch runs as one
+    grouped conv per pass, a kernel per sample and channel."""
+
+    def __init__(self, p: float = 0.5, sigma: Tuple[float, float] = (0.1, 2.0)):
+        self.p = p
+        self.sigma = tuple(sigma)
+        self.radius = max(1, int(math.ceil(4.0 * self.sigma[1])))
+
+    def draw(self, gen: torch.Generator, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(apply, sigma) per sample, drawn in this order."""
+        apply = torch.rand(batch, generator=gen, device=gen.device) < self.p
+        return apply, _uniform(gen, batch, *self.sigma)
+
+    def kernels(self, apply: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+        """(B, 2 radius + 1) taps: the Gaussian, or a delta where a sample
+        is not blurred."""
+        xs = torch.arange(-self.radius, self.radius + 1, dtype=torch.float32, device=sig.device)
+        k = torch.exp(-0.5 * (xs[None, :] / sig[:, None]) ** 2)
+        k = k / torch.sum(k, dim=1, keepdim=True)
+        delta = (xs == 0).to(torch.float32)
+        return torch.where(apply[:, None], k, delta[None, :])
+
+    def apply_params(self, image: torch.Tensor, apply: torch.Tensor,
+                     sig: torch.Tensor) -> torch.Tensor:
+        """The blur with given (B,) ``apply`` flags and sigmas."""
+        img_b, sq = _ensure_batched(image)
+        x = img_b if img_b.dim() == 4 else img_b[..., None]
+        b, h, w, c = x.shape
+        r = self.radius
+        taps = self.kernels(apply, sig).repeat_interleave(c, dim=0)  # (B*C, K): sample, channel
+        xg = x.permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+        xg = F.conv2d(F.pad(xg, (0, 0, r, r), mode="replicate"), taps[:, None, :, None],
+                      groups=b * c)
+        xg = F.conv2d(F.pad(xg, (r, r, 0, 0), mode="replicate"), taps[:, None, None, :],
+                      groups=b * c)
+        out = xg.reshape(b, c, h, w).permute(0, 2, 3, 1)
+        if img_b.dim() == 3:
+            out = out[..., 0]
+        return out[0] if sq else out
+
+    def __call__(self, gen, image, mask=None):
+        out = self.apply_params(image, *self.draw(gen, _ensure_batched(image)[0].shape[0]))
+        return (out, mask) if mask is not None else out
+
+    def __str__(self):
+        return f"GaussianBlur(sigma={self.sigma}, p={self.p})"
+
+
 class AdjustBrightness(Transform):
     """Additive brightness jitter, clipped to [0, 1] (reference
     ``transforms.py:445-491``), on a batch of any rank: each sample, with
@@ -192,6 +322,173 @@ class AdjustContrast(AdjustBrightness):
     @staticmethod
     def _adjust(image: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         return torch.clamp(image * f, 0.0, 1.0)
+
+
+class RandomZCrop(Transform):
+    """Random crop of ``Z`` slices along the last spatial axis of volumes
+    (reference ``transforms.py:72-115``): (B, H, W, D) -> (B, H, W, Z), the
+    start drawn per sample from [0, D - Z)."""
+
+    def __init__(self, Z: int = 64):
+        self.Z = Z
+
+    def draw(self, gen: torch.Generator, batch: int, depth: int) -> torch.Tensor:
+        return torch.randint(0, max(1, depth - self.Z), (batch,), generator=gen,
+                             device=gen.device)
+
+    def crop(self, image: torch.Tensor, z0: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, D) (or one (H, W, D) volume) cropped at the (B,) starts
+        ``z0``."""
+        single = image.dim() == 3
+        x = image[None] if single else image
+        b, h, w, _ = x.shape[:4]
+        idx = (z0[:, None] + torch.arange(self.Z, device=z0.device))
+        idx = idx.reshape((b, 1, 1, self.Z) + (1,) * (x.dim() - 4))
+        out = torch.gather(x, 3, idx.expand((b, h, w, self.Z) + tuple(x.shape[4:])))
+        return out[0] if single else out
+
+    def __call__(self, gen, image, mask=None):
+        b = 1 if image.dim() == 3 else image.shape[0]
+        z0 = self.draw(gen, b, image.shape[-1] if image.dim() == 3 else image.shape[3])
+        out = self.crop(image, z0)
+        return (out, self.crop(mask, z0)) if mask is not None else out
+
+    def __str__(self):
+        return f"RandomZCrop(Z={self.Z})"
+
+
+class RandomPatchSwap(Transform):
+    """Context-restoration corruption (Chen 2019; reference
+    ``transforms.py:672-759``): ``n`` times, two patches of h x w (a square
+    with ``rotate``, each then turned by a random multiple of 90 degrees)
+    change places, the same way in the image and the mask.
+
+    The JAX package's algorithm: 10 candidate pairs per swap, the first
+    whose patches do not overlap kept (the first candidate if none fits),
+    and within a swap region 1 written, region 2 read again from the
+    updated image, then written. :meth:`draw_geometry` draws every swap of
+    the batch at once; :meth:`apply` loops over the ``n`` swaps only, each a
+    gather and a scatter of S x S windows (S the largest side) of all
+    images together in a zero-padded (H + S, W + S) buffer."""
+
+    def __init__(
+        self,
+        n: int = 10,
+        w: Union[int, Sequence[int]] = (10, 30),
+        h: Union[int, Sequence[int]] = (10, 30),
+        rotate: bool = False,
+        tries: int = 10,
+    ):
+        self.n = n
+        self.w = tuple(w) if isinstance(w, (list, tuple)) else (int(w), int(w) + 1)
+        self.h = tuple(h) if isinstance(h, (list, tuple)) else (int(h), int(h) + 1)
+        self.rotate = rotate
+        self.tries = tries
+        self.S = max(self.w[1], self.h[1])
+
+    def draw_geometry(self, gen: torch.Generator, batch: int, hw: Tuple[int, int]):
+        """(h, w, p1, p2, r1, r2) of every swap: (B, n) int64 sizes, (B, n,
+        2) top-left corners (y, x) and (B, n) quarter turns (the patch from
+        p2 turned by r1 goes to p1, the one from p1 turned by r2 to p2)."""
+        H, W = hw
+        shape, dev = (batch, self.n), gen.device
+        w = torch.randint(self.w[0], self.w[1], shape, generator=gen, device=dev)
+        h = w if self.rotate else torch.randint(self.h[0], self.h[1], shape, generator=gen,
+                                                device=dev)
+        cand = torch.rand(shape + (self.tries, 4), generator=gen, device=dev)
+        span = torch.stack([H - h, W - w], dim=-1)[:, :, None, :].to(torch.float32)
+        p1 = torch.floor(cand[..., :2] * span).long()  # (B, n, tries, 2)
+        p2 = torch.floor(cand[..., 2:] * span).long()
+        d = (p1 - p2).abs()
+        ok = ~((d[..., 0] <= h[..., None]) & (d[..., 1] <= w[..., None]))
+        first = torch.argmax(ok.to(torch.uint8), dim=-1)[..., None, None].expand(batch, self.n, 1, 2)
+        p1, p2 = p1.gather(2, first)[:, :, 0], p2.gather(2, first)[:, :, 0]
+        if self.rotate:
+            r1 = torch.randint(0, 4, shape, generator=gen, device=dev)
+            r2 = torch.randint(0, 4, shape, generator=gen, device=dev)
+        else:
+            r1 = r2 = torch.zeros(shape, dtype=torch.long, device=dev)
+        return h, w, p1, p2, r1, r2
+
+    def _turn_index(self, h: torch.Tensor, k: torch.Tensor):
+        """(B, n, S, S) row and column indices that read the top-left h x h
+        block of an S x S window turned k quarter turns (``rot90``'s
+        direction) back into the top-left corner."""
+        a = torch.arange(self.S, device=h.device)
+        i, j = a[:, None], a[None, :]
+        last, k = h[..., None, None] - 1, k[..., None, None]
+        rows = torch.where(k == 0, i, torch.where(k == 1, j, torch.where(k == 2, last - i,
+                                                                         last - j)))
+        cols = torch.where(k == 0, j, torch.where(k == 1, last - i, torch.where(k == 2, last - j,
+                                                                              i)))
+        return rows.clamp(0, self.S - 1), cols.clamp(0, self.S - 1)
+
+    def apply(self, image: torch.Tensor, geometry, mask: Optional[torch.Tensor] = None):
+        """The swaps of ``geometry`` (as :meth:`draw_geometry` returns it)
+        on a (B, H, W[, C]) batch and its mask."""
+        h, w, p1, p2, r1, r2 = geometry
+        img_b, sq = _ensure_batched(image)
+        x = img_b if img_b.dim() == 4 else img_b[..., None]
+        ci = x.shape[-1]
+        if mask is not None:
+            mask_b, _ = _ensure_batched(mask)
+            mk = mask_b if mask_b.dim() == 4 else mask_b[..., None]
+            x = torch.cat([x, mk.to(x.dtype)], dim=-1)
+        b, H, W, _ = x.shape
+        S = self.S
+        xp = F.pad(x, (0, 0, 0, S, 0, S))
+        a = torch.arange(S, device=x.device)
+        bi = torch.arange(b, device=x.device)[:, None, None]
+        valid = ((a[:, None] < h[..., None, None]) & (a[None, :] < w[..., None, None]))[..., None]
+        t1, t2 = self._turn_index(h, r1), self._turn_index(h, r2)
+
+        def window(p):
+            return p[:, 0, None, None] + a[:, None], p[:, 1, None, None] + a[None, :]
+
+        for s in range(self.n):
+            (y1, x1), (y2, x2) = window(p1[:, s]), window(p2[:, s])
+            patch1, patch2 = xp[bi, y1, x1], xp[bi, y2, x2]
+            to1 = patch2[bi, t1[0][:, s], t1[1][:, s]]
+            to2 = patch1[bi, t2[0][:, s], t2[1][:, s]]
+            xp[bi, y1, x1] = torch.where(valid[:, s], to1, patch1)
+            xp[bi, y2, x2] = torch.where(valid[:, s], to2, xp[bi, y2, x2])
+        out = xp[:, :H, :W]
+        img_out = out[..., :ci] if img_b.dim() == 4 else out[..., 0]
+        img_out = img_out[0] if sq else img_out
+        if mask is None:
+            return img_out
+        mask_out = out[..., ci:] if mask_b.dim() == 4 else out[..., ci]
+        return img_out, (mask_out[0] if sq else mask_out)
+
+    def __call__(self, gen, image, mask=None):
+        img_b = _ensure_batched(image)[0]
+        geometry = self.draw_geometry(gen, img_b.shape[0], tuple(img_b.shape[1:3]))
+        return self.apply(image, geometry, mask)
+
+    def __str__(self):
+        return (f"RandomPatchSwap(n={self.n}, w={list(self.w)}, h={list(self.h)}, "
+                f"rotate={self.rotate})")
+
+
+class ToTensor(Transform):
+    """A channel axis on the image and mask (the reference's
+    ``ToTorchTensor``, ``transforms.py:634-670``, converts host arrays to
+    torch; here the batch is a tensor already)."""
+
+    def __call__(self, gen, image, mask=None):
+        img_b, sq = _ensure_batched(image)
+        if img_b.dim() == 3:
+            img_b = img_b[..., None]
+        out = img_b[0] if sq else img_b
+        if mask is None:
+            return out
+        mask_b, msq = _ensure_batched(mask)
+        if mask_b.dim() == 3:
+            mask_b = mask_b[..., None]
+        return out, (mask_b[0] if msq else mask_b)
+
+    def __str__(self):
+        return "ToTensor()"
 
 
 class Compose(Transform):
@@ -248,14 +545,12 @@ def build_pipeline(spec: dict) -> Compose:
     """A :class:`Compose` from a JSON config dict {TransformName: kwargs}
     (the reference's ``getattr(tf, name)(**kwargs)``,
     ``UNet2D_scripts.py:128``), through the registry."""
-    for name in spec:
-        if name in NOT_PORTED:
-            raise KeyError(f"transform {name!r} is not ported yet: it comes with the SSL "
-                           f"slice of the port (ROADMAP.md §1)")
     return Compose(*(TRANSFORMS.build(name, **(kw or {})) for name, kw in spec.items()))
 
 
-for _cls in (Translate, Rotate, Scale, HFlip, VFlip, AdjustBrightness, AdjustContrast):
+for _cls in (Translate, Rotate, Scale, HFlip, VFlip, Resize, GaussianBlur, AdjustBrightness,
+             AdjustContrast, RandomCropResize, RandomZCrop, RandomPatchSwap, ToTensor):
     TRANSFORMS.add(_cls.__name__, _cls)
+TRANSFORMS.add("ToTorchTensor", ToTensor)
 # the reference config's typo (GlobalContrastive_config.json), accepted as the JAX package does
 TRANSFORMS.add("AdjustBrighness", AdjustBrightness)

@@ -9,14 +9,15 @@ of :mod:`ich_tpu.train.checkpoint`).
   resume (``UNet2D.py:109-121``).
 - ``transfer_weights``: the reference's key-intersection ``state_dict``
   update (``UNet2D.py:316-337``) with strict shapes, which raises when
-  nothing matches.
+  nothing matches;
+- ``freeze_mask``: the parameters a frozen transfer keeps fixed.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import torch
 
@@ -79,3 +80,14 @@ def transfer_weights(
             f"(by key and shape) — the architectures are incompatible; check "
             f"depth/top_filter/midchannels_factor.")
     return new, moved
+
+
+def freeze_mask(param_names: Iterable[str], frozen_keys: Iterable[str]) -> Set[str]:
+    """The parameters to keep fixed: the names in ``param_names`` (a
+    module's ``named_parameters`` keys) among ``frozen_keys`` (the keys a
+    transfer moved, buffers included). The JAX package returns the
+    complement as a boolean pytree for ``optax``; the trainers here leave
+    these parameters out of the optimizer (the reference's
+    ``requires_grad=False``, ``Contrastive.py:227-253``)."""
+    frozen = set(frozen_keys)
+    return {k for k in param_names if k in frozen}

@@ -371,17 +371,19 @@ class UNet2D:
     def _segment(self, vol: torch.Tensor, input_size: Tuple[int, int],
                  window: Optional[Tuple[float, float]]) -> torch.Tensor:
         """(H, W, Zp) raw volume on the device, Zp a multiple of the batch
-        size -> (H, W, Zp) uint8 {0, 1} mask on the device."""
+        size -> (H, W, Zp) uint8 {0, 1} mask on the device; the net runs in
+        eval mode, whatever mode it was left in."""
         h, w, z_pad = vol.shape
         x = torch.rot90(vol, 1, dims=(0, 1))  # 90 deg ccw
         if window is not None:
             x = ct.window_ct(x, window[0], window[1], (0.0, 1.0))
         x = ct.resize(x, (input_size[0], input_size[1], z_pad), order=1)
         x = x.permute(2, 0, 1).unsqueeze(1).contiguous()  # (Zp, 1, h, w)
-        pred = torch.cat([
-            (self.unet(xb) >= 0.5).to(torch.uint8)[:, 0]
-            for xb in x.split(self.batch_size)
-        ])  # (Zp, h, w)
+        with eval_mode(self.unet):
+            pred = torch.cat([
+                (self.unet(xb) >= 0.5).to(torch.uint8)[:, 0]
+                for xb in x.split(self.batch_size)
+            ])  # (Zp, h, w)
         pred = pred.permute(1, 2, 0)  # (h, w, Zp)
         # still in the rot90 frame: resize to the rotated dims (W, H) so the
         # rotate-back lands on the input's (H, W)
@@ -464,7 +466,11 @@ class UNet2D:
     def save_model(self, export_fn: str) -> None:
         ckpt.save_params(export_fn, self.unet.state_dict())
 
-    def load_model(self, import_fn: str) -> None:
+    def load_model(self, import_fn: str, image_shape: Tuple[int, ...] = (256, 256)) -> None:
+        """Load weights written by :meth:`save_model`. ``image_shape`` is the
+        JAX API's (its trainer builds its state from an example input); the
+        port's net holds its parameters from construction, so it is
+        accepted and not used."""
         self.unet.load_state_dict(ckpt.load_params(import_fn))
 
     def transfer_weights(self, source_state_dict: Dict[str, torch.Tensor],

@@ -184,13 +184,20 @@ def test_same_seed_same_draws_and_flip_moves_pixels():
 
 
 def test_build_pipeline_registry_and_not_ported():
+    """Every name of the JAX package's ``TRANSFORMS`` registry builds in the
+    port (nothing is left unported), with its kwargs, as the same class."""
+    from ich_tpu.utils.config import TRANSFORMS as JAX_TRANSFORMS
+
     pipe = T.build_pipeline(CONFIG_SPEC)
     assert [type(t).__name__ for t in pipe.transforms] == list(CONFIG_SPEC)
     assert "Translate(low=-0.1, high=0.1)" in str(pipe)
     both = pipe + T.VFlip(0.3)
     assert len(both.transforms) == 5 and isinstance(both, T.Compose)
-    for name in ("Translate", "Rotate", "Scale", "HFlip", "VFlip"):
-        assert name in TRANSFORMS
-    for name in ("GaussianBlur", "RandomZCrop", "RandomPatchSwap", "Resize"):
-        with pytest.raises(KeyError, match="SSL slice"):
-            T.build_pipeline({name: {}})
+    assert not hasattr(T, "NOT_PORTED")
+    for name in JAX_TRANSFORMS:
+        if name in ("Flip3D", "RotateInPlane", "AffineAugment3D"):
+            continue  # ich_tpu_torch.ops.transforms3d registers these
+        assert name in TRANSFORMS, name
+        kw = {"Z": 4} if name == "RandomZCrop" else {}
+        built = T.build_pipeline({name: kw}).transforms[0]
+        assert type(built).__name__ == type(JAX_TRANSFORMS.build(name, **kw)).__name__, name

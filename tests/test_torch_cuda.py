@@ -12,12 +12,13 @@ import torch
 from ich_tpu_torch.data.core import VolumeDataset3D
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices
-from ich_tpu_torch.models.unet import UNet
+from ich_tpu_torch.models.unet import PartialUNet, UNet, UNetEncoder
 from ich_tpu_torch.ops import edt
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
+from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
 
 pytestmark = pytest.mark.cuda
 
@@ -250,3 +251,125 @@ def test_remat_matches_plain_on_card(card, norm):
     assert float((a - b).norm()) <= 1e-5 * float(a.norm())
     for (k, a), b in zip(nets[False].named_buffers(), nets[True].buffers()):
         assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-7), k
+
+
+@pytest.mark.parametrize("rotate", [True, False])
+def test_patch_swap_card_equals_cpu(card, rotate):
+    """The geometry drawn on the CPU and injected: the swapped images and
+    masks are equal on the card and the CPU."""
+    swap = T.RandomPatchSwap(n=10, w=(10, 30), h=(10, 30), rotate=rotate)
+    geom = swap.draw_geometry(torch.Generator().manual_seed(0), 8, (256, 256))
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.uniform(size=(8, 256, 256, 1)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(8, 256, 256)) > 0.5).astype(np.float32))
+    want = swap.apply(img, geom, mask)
+    got = swap.apply(img.cuda(), tuple(g.cuda() for g in geom), mask.cuda())
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    drawn = swap.draw_geometry(gen, 8, (256, 256))
+    assert all(d.is_cuda for d in drawn) and (drawn[0] >= 10).all()
+
+
+def test_blur_and_crop_resize_card_match_cpu(card):
+    """The blur with injected flags and sigmas, and the crop-resize warp
+    with injected (m, o): within 1e-5 on the card and the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    blur = T.GaussianBlur(0.5, (0.1, 2.0))
+    apply, sig = blur.draw(gen, 16)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(16, 256, 256, 1)).astype(np.float32))
+    want = blur.apply_params(x, apply, sig)
+    got = blur.apply_params(x.cuda(), apply.cuda(), sig.cuda())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    crop = T.RandomCropResize((0.4, 0.8))
+    m, o = crop.affine_params(gen, 16, (256, 256))
+    crop.affine_params = lambda g, b, hw: (m.to(g.device), o.to(g.device))
+    want = crop(torch.Generator(), x)
+    got = crop(torch.Generator(device="cuda"), x.cuda())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+class _TwoViews:
+    """The batch, then its left-right mirror, call by call."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, gen, x):
+        self.calls += 1
+        return x if self.calls % 2 else x.flip(2)
+
+
+def _ssl_pair(kind):
+    torch.manual_seed(0)
+    small = dict(depth=3, top_filter=8, p_dropout=0.0)
+    if kind == "cr":
+        make = lambda: UNet(use_final_activation=False, **small)  # noqa: E731
+    elif kind == "global":
+        make = lambda: UNetEncoder(mlp_head=(32, 16), **small)  # noqa: E731
+    else:
+        make = lambda: PartialUNet(n_decoder=1, head_channel=(16, 8), **small)  # noqa: E731
+    net = make()
+    sd = {k: v.clone() for k, v in net.state_dict().items()}
+    out = []
+    for dev, n in (("cpu", net), ("cuda", make())):
+        n.load_state_dict(sd)
+        kw = dict(n_epoch=1, batch_size=8, lr=1e-3, seed=0, device=dev)
+        if kind == "cr":
+            t = ContextRestoration(n, n_swap=3, swap_w=(4, 8), swap_h=(4, 8), **kw)
+        else:
+            t = Contrastive(n, is_global=kind == "global", K=2, n_region=4, **kw)
+        out.append(t)
+    return out
+
+
+def _inject(kind, trainers, monkeypatch):
+    """The same randomness on every trainer: the CPU's patch-swap geometry;
+    or two fixed views and fixed region cells."""
+    if kind == "cr":
+        geom = trainers[0].corrupt.draw_geometry(torch.Generator().manual_seed(1), 8, (32, 32))
+        for t in trainers:
+            swap = t.corrupt
+            t.corrupt = lambda g, x, swap=swap: swap.apply(x, tuple(a.to(x.device) for a in geom))
+        return
+    import ich_tpu_torch.ops.losses as losses
+
+    cells = torch.from_numpy(np.stack([np.random.default_rng(i).permutation(64)[:4]
+                                       for i in range(8)]))
+    monkeypatch.setattr(losses, "sample_region_cells", lambda g, b, n, r: cells.to(g.device))
+    for t in trainers:
+        t.aug = _TwoViews()
+
+
+@pytest.mark.parametrize("kind", ["cr", "global", "local"])
+def test_ssl_steps_card_match_cpu(card, kind, monkeypatch):
+    """Each SSL trainer from the same weights (16 slices at 32^2, batch 8,
+    TF32 off) with the randomness injected, on the card and the CPU. The
+    first step: loss within rtol 1e-5 and gradient within 1e-3 in norm
+    (two CPU thread counts differ by up to 3e-5 there). An epoch of two
+    steps: loss within rtol 1e-4 and every weight within Adam's 2 lr a
+    step (at fresh weights many gradients are float32 rounding, whose sign
+    decides Adam's first steps)."""
+    ds = synthetic_ich_slices(n_slices=16, size=32, n_volumes=2, seed=0)
+    first = _ssl_pair(kind)
+    _inject(kind, first, monkeypatch)
+    step1 = []
+    for t in first:
+        state = t._train_state(2)
+        t.net.train()
+        loss = t._train_step(state, torch.from_numpy(ds.images[:8]).to(t.device), 0)
+        step1.append((float(loss), torch.cat([p.grad.flatten().cpu() for p in t.net.parameters()
+                                              if p.grad is not None])))
+    (lc, gc), (lg, gg) = step1
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    assert float((gc - gg).norm()) <= 1e-3 * float(gc.norm())
+
+    cpu, gpu = _ssl_pair(kind)
+    _inject(kind, (cpu, gpu), monkeypatch)
+    cpu.train(ds)
+    gpu.train(ds.device_cache("cuda"))
+    lc, lg = cpu.outputs["train"]["evolution"][0][1], gpu.outputs["train"]["evolution"][0][1]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    a = torch.cat([v.flatten() for v in cpu.net.state_dict().values() if v.is_floating_point()])
+    b = torch.cat([v.flatten().cpu() for v in gpu.net.state_dict().values()
+                   if v.is_floating_point()])
+    assert float((a - b).abs().max()) <= 2 * 2 * 1e-3 * 1.005

@@ -126,7 +126,7 @@ def test_preemption_checkpoints_and_exits_143(tmp_path):
 
 
 def test_gated_unet_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="SSL slice"):
+    with pytest.raises(NotImplementedError, match="anomaly-detection slice"):
         supervised2d.build_unet_from_cfg({"gated": True, "depth": 3})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

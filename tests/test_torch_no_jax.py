@@ -21,8 +21,10 @@ PROBE = textwrap.dedent("""
               and sys.modules[m] is not None]
     assert not loaded, loaded
     for name in ("ich_tpu_torch.ops.transforms3d", "ich_tpu_torch.data.patch_sampler",
-                 "ich_tpu_torch.experiments.supervised3d"):
+                 "ich_tpu_torch.experiments.supervised3d", "ich_tpu_torch.train.ssl",
+                 "ich_tpu_torch.experiments.pretrain_finetune"):
         assert name in names, name
+    assert "sklearn" not in sys.modules  # imported only inside evaluate_representation
     print(len(names))
 """)
 
