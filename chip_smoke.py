@@ -88,10 +88,46 @@ its last line:
    batch 32 and global and local contrastive at batch 64; (e) a profiler
    breakdown of one context-restoration step (ranges ``corrupt``, ``net``,
    ``loss``) and of one global contrastive step (``views``, ``net``,
-   ``loss``).
+   ``loss``);
+9. classification pretraining, the label-efficiency sweep and the
+   brain-only workflow, at the width of
+   ``configs/contrastive_global_local.json`` (encoder d5 f32 mcf1, BatchNorm,
+   no dropout, float32 with TF32, 256x256 slices, batch 64,
+   ``frac_negative`` 2), on phase 8's RSNA slices: (a) a SegICH 2D CSV tree
+   written with the port's writer (``SEGICH2D_TREE``: 20 patients x 16
+   slices of 512x512, cut from 24 slices; lesions in the 10 patients that
+   ``SEGICH2D_SEED`` draws, on about a third of their slices, masks on the
+   positive slices only) and ``python -m
+   ich_tpu_torch.experiments.supervised2d`` on it (``configs/unet2d.json``
+   cut to 2 folds x 1 epoch) with pandas, PIL and scikit-learn made
+   unimportable, its aggregates checked; (b) ``pretrain_classifier`` of the
+   encoder with the head 256-128-2 for 3 epochs, then 7-way for 1 epoch
+   (the config: 100), the artifacts, the falling loss and finite AUCs
+   checked; (c) ``label_efficiency_sweep`` from the binary weights at the
+   fractions 0.1, 0.25, 0.5 and 1.0 with the low-label recipe on the CSV
+   tree, 2 folds x 1 epoch (0.1 stretched to 2), each fraction timed, each
+   fold's log naming the moved encoder keys and its training slices and
+   positives equal to what the split, the draw ``default_rng(42 + k)`` and
+   the negative cap give (with ``SEGICH2D_SEED`` every fold of every
+   fraction keeps a patient with a lesion; at 0.1 one of its 10); (d)
+   ``python -m ich_tpu_torch.experiments.binary_resnet`` (ResNet-18, 256x256,
+   batch 64, 2 epochs) and its artifacts; (e) ``python -m
+   ich_tpu_torch.experiments.brain_extraction`` on a tree whose masks are
+   the head's interior (``BRAIN_TREE``), 2 folds x 1 epoch then 1 epoch on
+   all; ``pred_on_brain`` on copies of (a)'s experiment with 512x512 brain
+   BMPs: all ones leave every prediction BMP byte-equal and the CSVs those
+   of evaluate, twice; all zeros empty every prediction and give each fold
+   an empty prediction's positive Dice; ``segment_brain`` with the brain
+   U-Net on two 512x512x40 NIfTIs; (f) three full-width steps (batch 2,
+   TF32 off, nothing random) of ``BinaryClassifier`` and ``MultiClassifier``
+   on the encoder and ``BinaryClassifier`` on ResNet-18, card against CPU,
+   held as phase 8's; (g) warm step times, slices/s, FLOPs and their rate,
+   and peak memory of ``cls_encoder_bs64`` and ``cls_resnet18_bs64`` with
+   TF32, and a profile of one warm ResNet-18 step with the BatchNorm
+   kernels cuDNN takes (NHWC or NCHW).
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training and SSL paths must read 0). The line before the last is a JSON object with each
+read just after (the training, SSL and phase 9 paths must read 0). The line before the last is a JSON object with each
 kernel's launches on the path that runs it (the 2.5D serve's EDT leg), its
 error against the plain version, both times and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,9 +135,13 @@ error against the plain version, both times and its bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import json
 import os
+import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from collections import defaultdict
@@ -114,18 +154,30 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import serve
 from ich_tpu_torch.data import nifti
-from ich_tpu_torch.data.core import LabeledSliceDataset
+from ich_tpu_torch.data.bmp import read_bmp, save_bmp_gray
+from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
 from ich_tpu_torch.data.datasets import load_rsna_slices, load_segich_3d, write_rsna_slice_info
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
-from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree
+from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
+from ich_tpu_torch.experiments import binary_resnet, brain_extraction, pred_on_brain, segment_brain
+from ich_tpu_torch.experiments import supervised2d
+from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
 from ich_tpu_torch.experiments.pretrain_finetune import (
+    _seeded,
     build_encoder,
     build_partial_unet,
+    label_efficiency_sweep,
+    pretrain_classifier,
     pretrain_context_restoration,
     pretrain_contrastive,
     run_supervised_2d_with_init,
 )
-from ich_tpu_torch.experiments.supervised2d import build_unet_from_cfg, run_supervised_2d
+from ich_tpu_torch.experiments.supervised2d import (
+    build_unet_from_cfg,
+    run_supervised_2d,
+    stratified_kfold,
+    subsample_label_fraction,
+)
 from ich_tpu_torch.experiments.supervised3d import (
     build_trainer3d,
     build_unet3d_from_cfg,
@@ -133,6 +185,7 @@ from ich_tpu_torch.experiments.supervised3d import (
     split_test,
 )
 from ich_tpu_torch.kernels import _build
+from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
 from ich_tpu_torch.ops import losses as losses_mod
@@ -142,6 +195,7 @@ from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmen
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
+from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
@@ -193,6 +247,22 @@ SSL_FOLD = ((128, 4), (32, 2))  # the fine-tune's (slices, volumes): train, test
 SSL_HOLD_BATCH = 2  # the card/CPU hold (the CPU's step time)
 SSL_TIMED = (("ssl_cr_bs32", "cr", 32), ("ssl_contrastive_global_bs64", "global", 64),
              ("ssl_contrastive_local_bs64", "local", 64))
+# phase 9: classification pretraining, the label-efficiency sweep and the
+# brain-only workflow at the width of configs/contrastive_global_local.json;
+# a SegICH 2D CSV tree of (patients, slices each, side)
+SEGICH2D_TREE = (20, 16, 512)  # cut from 24 slices a patient to keep the phase near 60 s
+# lesions in half the patients, drawn from this seed: with the config's seed
+# 42 and 2 folds, every fold of every sweep fraction keeps a patient with a
+# lesion (the patients kept depend only on which have lesions)
+SEGICH2D_SEED = 2
+CLS_EPOCHS = (3, 1)  # binary, 7-way pretraining (the config: 100)
+SWEEP_FRACTIONS = (0.1, 0.25, 0.5, 1.0)
+RESNET_EPOCHS = 2
+BRAIN_TREE = (6, 8, 512)  # the brain-extraction tree: patients, slices, side
+BRAIN_VOLS = 2  # 512x512x40 NIfTIs for segment_brain
+CLS_HOLD_BATCH = 2
+CLS_TIMED = (("cls_encoder_bs64", "binary", 64), ("cls_resnet18_bs64", "resnet18", 64))
+NOT_ON_THE_CARD = ("pandas", "PIL", "sklearn")  # the port runs without them
 DEV = "cuda"
 
 
@@ -1603,7 +1673,7 @@ def _ssl_profile(t, state, batch) -> None:
                            f"{t.batch_size}, TF32 on)", OP_GROUPS_SSL, SSL_RANGES))
 
 
-def phase_ssl(work: str) -> None:
+def phase_ssl(work: str) -> LabeledSliceDataset:
     cfgs = {"cr": load_ssl_cfg(CR_CFG, work), "con": load_ssl_cfg(CON_CFG, work)}
     data = _rsna_data(cfgs["cr"], work)
     weights = _ssl_cr_driver(cfgs["cr"], data)
@@ -1622,6 +1692,459 @@ def phase_ssl(work: str) -> None:
     warm = _ssl_step_times(cfgs, data)
     _ssl_profile(*warm["cr"])
     _ssl_profile(*warm["global"])
+    return data
+
+
+# -- phase 9: classification pretraining, the sweep, the brain-only workflow -------
+
+@contextlib.contextmanager
+def _unimportable(names: tuple):
+    """``names`` (and their submodules) cannot be imported inside the block,
+    whatever is installed; the modules are restored after."""
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules) if m.split(".")[0] in names}
+    sys.modules.update({n: None for n in names})
+    try:
+        yield
+    finally:
+        for n in names:
+            sys.modules.pop(n, None)
+        sys.modules.update(saved)
+
+
+def load_cls_cfgs(work: str) -> dict:
+    """The contrastive config (its width as it is; 2 folds) and
+    ``configs/unet2d.json`` cut to 2 folds of 1 epoch, both reading the
+    trees under ``work``."""
+    con = load_ssl_cfg(CON_CFG, work)
+    con["path"]["DATA"] = os.path.join(work, "segich2d")
+    con["train"]["n_epoch"] = 1
+    with open(TRAIN_CFG) as f:
+        seg = json.load(f)
+    seg["path"] = {"DATA": os.path.join(work, "segich2d"), "OUTPUT": os.path.join(work, "out")}
+    seg["split"]["n_fold"] = 2
+    seg["train"]["n_epoch"] = 1
+    return {"con": con, "seg": seg}
+
+
+def _write_cfg(cfg: dict, fn: str) -> str:
+    with open(fn, "w") as f:
+        json.dump(cfg, f)
+    return fn
+
+
+def _segich2d_tree(root: str) -> tuple:
+    """``SEGICH2D_TREE`` written with the port's writer: a random half of
+    the patients (from ``SEGICH2D_SEED``) with lesions on about a third of
+    their slices, the others with none. Returns the slices and the lesion
+    patients."""
+    n_pat, n_slices, size = SEGICH2D_TREE
+    lesion = sorted(np.random.default_rng(SEGICH2D_SEED).choice(n_pat, n_pat // 2,
+                                                                replace=False).tolist())
+    parts = [synthetic_ich_slices(n_slices=n_slices, size=size, n_volumes=1,
+                                  seed=1000 * SEGICH2D_SEED + p,
+                                  positive_frac=0.5 if p in lesion else 0.0)
+             for p in range(n_pat)]
+    ds = SliceDataset2D(np.concatenate([p.images for p in parts]),
+                        np.concatenate([p.masks for p in parts]),
+                        np.repeat(np.arange(n_pat), n_slices), np.tile(np.arange(n_slices), n_pat))
+    has = [int(ds.masks[ds.vol_ids == p].max() > 0) for p in range(n_pat)]
+    check(has == [int(p in lesion) for p in range(n_pat)], f"cls: lesion patients {has}")
+    write_segich_tree(ds, root)
+    return ds, lesion
+
+
+def _cls_csv_path(cfgs: dict, work: str, tree_ds) -> str:
+    """(a) ``python -m ich_tpu_torch.experiments.supervised2d`` on the CSV
+    tree, with pandas, PIL and scikit-learn unimportable; returns the
+    experiment dir."""
+    cfg = cfgs["seg"]
+    fn = _write_cfg(cfg, os.path.join(work, "unet2d_csv.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _unimportable(NOT_ON_THE_CARD):
+        out = supervised2d.main([fn, "--device", DEV])
+        loaded = [m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD
+                  and sys.modules[m] is not None]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not loaded, f"cls: the CSV path imported {loaded}")
+    for name in ("average_scores.txt", "all_volume_prediction.csv", "config.json"):
+        check(os.path.exists(os.path.join(out, name)), f"cls csv path: no {name}")
+    with open(os.path.join(out, "all_volume_prediction.csv"), newline="") as f:
+        vols = sorted(int(r[1]) for r in list(csv.reader(f))[1:])
+    check(vols == list(range(SEGICH2D_TREE[0])), f"cls csv path: tested volumes {vols}")
+    n_bmp = sum(f.endswith(".bmp") for _, _, fs in os.walk(out) for f in fs)
+    check(n_bmp == len(tree_ds), f"cls csv path: {n_bmp} prediction BMPs, not {len(tree_ds)}")
+    with open(os.path.join(out, "average_scores.txt")) as f:
+        avg = f.read().strip().replace("\n", "; ")
+    print(f"cls (a) supervised2d CLI on the CSV tree ({TRAIN_CFG}: {cfg['split']['n_fold']} folds "
+          f"x {cfg['train']['n_epoch']} epoch, {len(tree_ds)} slices of "
+          f"{SEGICH2D_TREE[2]}^2 read at {cfg['data']['size']}^2) in {wall!r} s with "
+          f"{', '.join(NOT_ON_THE_CARD)} unimportable: {avg}")
+    return out
+
+
+def _cls_pretrain(cfg: dict, data) -> dict:
+    """(b) binary pretraining for ``CLS_EPOCHS[0]`` epochs, 7-way for
+    ``CLS_EPOCHS[1]``; returns the binary weights."""
+    cached = data.device_cache(DEV)
+    weights = {}
+    for multi, n_epoch in ((False, CLS_EPOCHS[0]), (True, CLS_EPOCHS[1])):
+        kind = "7-way" if multi else "binary"
+        c = {**cfg, "exp_name": f"cls_{'multi' if multi else 'binary'}",
+             "train": {**cfg["train"], "n_epoch": n_epoch}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights[multi] = pretrain_classifier(c, cached, multi=multi, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pre = os.path.join(c["path"]["OUTPUT"], c["exp_name"], "pretrain_classifier")
+        for name in ("pretrained.bin", "outputs.json", "classifier_scores.json"):
+            check(os.path.exists(os.path.join(pre, name)), f"cls {kind}: no {name}")
+        with open(os.path.join(pre, "outputs.json")) as f:
+            losses = [row[1] for row in json.load(f)["train"]["evolution"]]
+        with open(os.path.join(pre, "classifier_scores.json")) as f:
+            scores = json.load(f)
+        auc = scores["auc_macro" if multi else "auc"]
+        head = tuple(weights[multi][f"mlp_head.fc_layers.{len(cfg['net']['MLP_head'])}.weight"].shape)
+        print(f"cls (b) {kind} pretraining (encoder d{cfg['net']['depth']} f"
+              f"{cfg['net']['top_filter']} mcf{cfg['net']['midchannels_factor']}, head "
+              f"{cfg['net']['MLP_head']}+{head[0]}, batch {cfg['train']['batch_size']}, "
+              f"{len(data)} slices): {n_epoch} epochs in {wall!r} s, losses {losses!r}, "
+              f"metrics {scores}")
+        check(all(np.isfinite(losses)) and np.isfinite(auc), f"cls {kind}: loss or AUC not finite")
+        if not multi:
+            check(losses[-1] < losses[0], f"cls {kind}: the mean loss did not fall {losses}")
+    return weights[False]
+
+
+def _kept(cfg: dict, tree_ds, lesion: list, frac: float) -> list:
+    """Per fold, the training patients the CSV path keeps at ``frac`` and
+    the slices (all, positive) it trains on after the negative cap: the
+    split and draws of ``run_supervised_2d`` recomputed from the tree."""
+    n_pat = SEGICH2D_TREE[0]
+    hem = np.isin(np.arange(n_pat), lesion).astype(int)
+    cap = (LOW_LABEL_RECIPE["frac_negative"] if frac < LOW_LABEL_RECIPE["below"]
+           else cfg["dataset"]["frac_negative"])
+    pos = np.array([int(m.max() > 0) for m in tree_ds.masks])
+    out = []
+    for k, (train, _) in enumerate(stratified_kfold(hem, cfg["split"]["n_fold"], True,
+                                                    cfg["seed"])):
+        keep = train if frac >= 1.0 else subsample_label_fraction(
+            train, frac, np.random.default_rng(cfg["seed"] + k))
+        rows = np.isin(tree_ds.vol_ids, keep)
+        n_pos, n_neg = int(pos[rows].sum()), int((1 - pos[rows]).sum())
+        n_neg -= int(max(0, n_neg - cap * n_pos))
+        out.append((sorted(int(p) for p in keep), n_pos + n_neg, n_pos))
+    return out
+
+
+def _cls_sweep(cfg: dict, weights: dict, tree_ds, lesion: list) -> None:
+    """(c) the sweep from the binary weights on the CSV tree, one fraction
+    at a time (timed), the low-label recipe on."""
+    n_enc = len([k for k, v in build_unet_from_cfg(cfg["net"]).state_dict().items()
+                 if k in weights and tuple(weights[k].shape) == tuple(v.shape)])
+    for frac in SWEEP_FRACTIONS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = label_efficiency_sweep(cfg, weights, None, fractions=(frac,), seed=cfg["seed"],
+                                     low_label_recipe=LOW_LABEL_RECIPE, device=DEV)[frac]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "average_scores.txt")) as f:
+            avg = f.read().strip().replace("\n", "; ")
+        with open(os.path.join(out, "config.json")) as f:
+            saved = json.load(f)
+        want = _kept(cfg, tree_ds, lesion, frac)
+        folds = []
+        for k, (keep, n_train, n_pos) in enumerate(want):
+            with open(os.path.join(out, f"Fold_{k + 1}", "log.txt")) as f:
+                log = f.read().splitlines()
+            moved = next((ln for ln in log if "matching weight keys" in ln), "")
+            train = next(ln for ln in log if ln.startswith("Train")).split()[1:4]
+            got = (int(train[0]), int(train[2]))
+            folds.append(f"fold {k + 1}: patients {keep} ({len(keep)} of "
+                         f"{SEGICH2D_TREE[0] // cfg['split']['n_fold']}), {got[0]} training "
+                         f"slices, {got[1]} positive; {moved.split('|')[-1].strip()!r}")
+            check(got == (n_train, n_pos) and n_pos > 0,
+                  f"cls sweep {frac}: fold {k + 1} trained on {got}, expected {(n_train, n_pos)}")
+            check(moved.split("|")[-1].split()[:1] == [str(n_enc)],
+                  f"cls sweep {frac}: fold {k + 1} log does not name {n_enc} moved keys")
+        print(f"cls (c) sweep fraction {frac}: {saved['split']['n_fold']} folds x "
+              f"{saved['train']['n_epoch']} epochs, frac_negative "
+              f"{saved['dataset']['frac_negative']}, wall {wall!r} s; {avg}; "
+              + "; ".join(folds))
+        if frac == SWEEP_FRACTIONS[0]:
+            check(all(len(k) == 1 for k, _, _ in want), "cls sweep: 0.1 keeps one patient")
+
+
+def _cls_resnet(cfg: dict, work: str) -> None:
+    """(d) ``python -m ich_tpu_torch.experiments.binary_resnet`` (ResNet-18
+    at the config's size and batch, ``RESNET_EPOCHS`` epochs)."""
+    c = {**cfg, "exp_name": "resnet18_triage", "net": {"name": "ResNet18"},
+         "train": {**cfg["train"], "n_epoch": RESNET_EPOCHS}}
+    fn = _write_cfg(c, os.path.join(work, "resnet18.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = binary_resnet.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("resnet_classifier.bin", "classifier_scores.json", "outputs.json"):
+        check(os.path.exists(os.path.join(out, name)), f"cls resnet: no {name}")
+    with open(os.path.join(out, "outputs.json")) as f:
+        losses = [row[1] for row in json.load(f)["train"]["evolution"]]
+    with open(os.path.join(out, "classifier_scores.json")) as f:
+        scores = json.load(f)
+    print(f"cls (d) binary_resnet CLI (ResNet-18, {c['data']['size']}^2, batch "
+          f"{c['train']['batch_size']}): {RESNET_EPOCHS} epochs with the RSNA load in {wall!r} s, "
+          f"losses {losses!r}, metrics {scores}")
+    check(len(losses) == RESNET_EPOCHS and all(np.isfinite(losses)) and np.isfinite(scores["auc"]),
+          "cls resnet: losses or AUC not finite")
+
+
+def _brain_dir(root: str, tree_ds, value: int) -> str:
+    """A brain BMP of the tree's side, all ``value``, per slice."""
+    img = np.full(tree_ds.images.shape[1:], value, np.uint8)
+    for v, s in zip(tree_ds.vol_ids, tree_ds.slice_nbrs):
+        os.makedirs(os.path.join(root, str(int(v))), exist_ok=True)
+        save_bmp_gray(os.path.join(root, f"{int(v)}/{int(s)}.bmp"), img)
+    return root
+
+
+def _pred_files(exp: str, suffix: str) -> dict:
+    return {os.path.relpath(os.path.join(r, f), exp): open(os.path.join(r, f), "rb").read()
+            for r, _, fs in os.walk(exp) for f in fs if f.endswith(suffix)}
+
+
+def _cls_brain(cfgs: dict, work: str, exp: str, tree_ds) -> None:
+    """(e) brain extraction on a tree whose masks are the head's interior,
+    the brain-only post-filter of (a)'s predictions with all-ones and
+    all-zeros brains, and segment_brain on two NIfTIs."""
+    n_pat, n_slices, size = BRAIN_TREE
+    ds = synthetic_ich_slices(n_slices=n_pat * n_slices, size=size, n_volumes=n_pat,
+                              seed=SEED + 500)
+    yy, xx = np.mgrid[0:size, 0:size]
+    head = ((yy - size / 2) ** 2 + (xx - size / 2) ** 2 < (0.42 * size) ** 2).astype(np.float32)
+    write_segich_tree(SliceDataset2D(ds.images, np.broadcast_to(head, ds.masks.shape),
+                                     ds.vol_ids, ds.slice_nbrs), os.path.join(work, "brain_tree"))
+    seg = cfgs["seg"]
+    cfg = {**seg, "exp_name": "brain_extraction",
+           "path": {"DATA": os.path.join(work, "brain_tree"), "OUTPUT": os.path.join(work, "out")}}
+    fn = _write_cfg(cfg, os.path.join(work, "brain.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = brain_extraction.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("average_scores.txt", "Fold_2/trained_unet.bin", "final_brain_unet.bin"):
+        check(os.path.exists(os.path.join(out, name)), f"cls brain extraction: no {name}")
+    with open(os.path.join(out, "average_scores.txt")) as f:
+        avg = f.read().strip().replace("\n", "; ")
+    print(f"cls (e) brain_extraction CLI ({n_pat * n_slices} slices of {size}^2, 2 folds then "
+          f"all, {cfg['train']['n_epoch']} epoch each) in {wall!r} s: {avg}")
+
+    n_fold, in_size = seg["split"]["n_fold"], str(seg["data"]["size"])
+    tree = seg["path"]["DATA"]
+    for value in (255, 0):
+        copy = shutil.copytree(exp, os.path.join(work, f"pred_on_brain_{value}"))
+        brain = _brain_dir(os.path.join(work, f"brain_{value}"), tree_ds, value)
+        before = _pred_files(copy, ".bmp")
+        csvs = _pred_files(copy, "prediction_scores.csv")
+        argv = ["--exp-dir", copy, "--data-dir", tree, "--brain-dir", brain, "--n-fold",
+                str(n_fold), "--size", in_size]
+        t0 = time.perf_counter()
+        pred_on_brain.main(argv)
+        wall = time.perf_counter() - t0
+        after = _pred_files(copy, ".bmp")
+        check(after.keys() == before.keys() and len(after) == len(tree_ds),
+              "cls pred_on_brain: prediction BMPs lost")
+        if value:
+            first = _pred_files(copy, "prediction_scores.csv")
+            pred_on_brain.main(argv)
+            same = first == _pred_files(copy, "prediction_scores.csv")
+            as_evaluate = first == csvs
+            print(f"cls (e) pred_on_brain, all-ones brain of {size}^2: {wall!r} s; every BMP "
+                  f"byte-equal {after == before}; a second pass gives the same CSVs {same}; the "
+                  f"CSVs equal evaluate's {as_evaluate}")
+            check(after == before and same and as_evaluate, "cls pred_on_brain: all-ones brain")
+            continue
+        empty = all(not read_bmp(os.path.join(copy, f)).any() for f in after)
+        dice = []
+        for k in range(n_fold):
+            with open(os.path.join(exp, f"Fold_{k + 1}/pred/volume_prediction_scores.csv")) as f:
+                rows = list(csv.DictReader(f))
+            want = float(np.mean([1.0 / (1.0 + float(r["TP"]) + float(r["FN"])) for r in rows
+                                  if r["label"] == "1"]))
+            with open(os.path.join(copy, f"Fold_{k + 1}/outputs.json")) as f:
+                dice.append((json.load(f)["eval"]["dice"]["positive"], want))
+        print(f"cls (e) pred_on_brain, all-zeros brain: {wall!r} s; every BMP empty {empty}; "
+              f"positive Dice per fold (got, an empty prediction's) {dice!r}")
+        check(empty and all(g == w for g, w in dice), "cls pred_on_brain: all-zeros brain")
+
+    rng = np.random.default_rng(SEED + 9)
+    vols = []
+    for i in range(BRAIN_VOLS):
+        vols.append(os.path.join(work, f"head{i}.nii.gz"))
+        nifti.save(vols[-1], head_ct(rng, VOL_SHAPE))
+    net = cfg["net"]
+    t0 = time.perf_counter()
+    outs = segment_brain.main(vols + ["-o", os.path.join(work, "brain_masks"), "-m",
+                                      os.path.join(out, "final_brain_unet.bin"),
+                                      "--depth", str(net["depth"]),
+                                      "--top-filter", str(net["top_filter"]),
+                                      "--midchannels-factor", str(net["midchannels_factor"]),
+                                      "--size", in_size, "--device", DEV])
+    wall = time.perf_counter() - t0
+    masks = [nifti.load(fn)[0] for fn in outs]
+    print(f"cls (e) segment_brain CLI on {BRAIN_VOLS} volumes of {VOL_SHAPE}: {wall!r} s, "
+          f"brain share per volume {[float((m == 255).mean()) for m in masks]!r}")
+    check(all(m.shape == VOL_SHAPE and set(np.unique(m)) <= {0, 255} for m in masks),
+          "cls segment_brain: masks")
+
+
+def _cls_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1):
+    """A full-width classifier from seeded weights: ``binary`` / ``multi``
+    on the config's encoder (head ``MLP_head`` + 2 or 7), ``resnet18``."""
+    tr = dict(n_epoch=n_epoch, batch_size=batch, lr=cfg["train"]["lr"], seed=SEED, device=device)
+    if kind == "resnet18":
+        return BinaryClassifier(_seeded(SEED, lambda: resnet18(num_classes=2)), **tr)
+    n_out = 7 if kind == "multi" else 2
+    enc = build_encoder(cfg, tuple(cfg["net"]["MLP_head"]) + (n_out,))
+    return (MultiClassifier if kind == "multi" else BinaryClassifier)(enc, **tr)
+
+
+def _cls_labels(kind: str, data) -> LabeledSliceDataset:
+    labels = data.labels if kind == "multi" else data.labels[:, 0].astype(np.int32)
+    return LabeledSliceDataset(data.images, labels)
+
+
+def _cls_holds(cfg: dict, data) -> None:
+    """(f) three full-width steps of each classifier (batch 2, TF32 off,
+    nothing random) on the card and on the CPU, held as phase 8's."""
+    torch.backends.cudnn.allow_tf32 = False
+    n = torch.get_num_threads()
+    for kind in ("binary", "multi", "resnet18"):
+        x = _cls_labels(kind, LabeledSliceDataset(data.images[:CLS_HOLD_BATCH],
+                                                  data.labels[:CLS_HOLD_BATCH]))
+        runs = []
+        for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))):
+            torch.set_num_threads(threads)
+            t = _cls_trainer(kind, cfg, dev, CLS_HOLD_BATCH, n_epoch=3)
+            t.train(x.device_cache(t.device))
+            runs.append({"losses": [row[1] for row in t.outputs["train"]["evolution"]],
+                         "params": torch.cat([p.detach().flatten().cpu()
+                                              for p in t.net.parameters()]),
+                         "lrs": [t.state.schedule(i) for i in range(3)]})
+        torch.set_num_threads(n)
+        card, cpu, ref = runs
+        loss1 = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+        traj = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        traj_ref = max(abs(a - b) / abs(b) for a, b in zip(ref["losses"], cpu["losses"]))
+        d = (card["params"] - cpu["params"]).abs()
+        bound = 2 * 1.005 * sum(cpu["lrs"]) + 1e-6
+        print(f"cls (f) {kind} step hold, full width, batch {CLS_HOLD_BATCH} of "
+              f"{tuple(data.images.shape[1:3])}, TF32 off, card vs cpu ({n} threads; reference: "
+              f"cpu with {max(1, n // 2)} threads vs {n}): step-1 loss rel diff {loss1!r} "
+              f"(tolerance 1e-5); losses over 3 steps card {card['losses']!r} cpu "
+              f"{cpu['losses']!r}, max rel diff {traj!r} (reference {traj_ref!r}, tolerance "
+              f"max(2e-4, 10x the reference)); weights max |diff| {float(d.max())!r}, share "
+              f"within 1e-4 {float((d <= 1e-4).float().mean())!r} (tolerance: all within "
+              f"{bound!r}, Adam's bound)")
+        check(loss1 <= 1e-5 and traj <= max(2e-4, 10 * traj_ref),
+              f"cls {kind}: card and cpu losses disagree")
+        check(float(d.max()) <= bound, f"cls {kind}: card and cpu weights disagree")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _cls_step_times(cfg: dict, data) -> tuple:
+    """(g) warm ms per step of each ``CLS_TIMED`` cell (TF32 on), FLOPs and
+    their rate, peak memory; returns the warm ResNet (trainer, state,
+    batch)."""
+    torch.backends.cudnn.allow_tf32 = True
+    cached = data.device_cache(DEV)
+    warm = None
+    for cell, kind, bs in CLS_TIMED:
+        t = _cls_trainer(kind, cfg, DEV, bs)
+        state = t._train_state(max(1, len(data) // bs))
+        plan = list(np.random.default_rng(SEED).integers(0, len(data), size=(4, bs)))
+        batches = list(t._labelled_batches(_cls_labels(kind, cached), plan))
+        t.net.train()
+        ms = _ssl_warm_ms(t, state, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as fc:
+            t._train_step(state, batches[0], 99)
+        flops = fc.get_total_flops()
+        tflops = flops / ms / 1e9
+        print(f"{cell}: {'ResNet-18' if kind == 'resnet18' else 'encoder + MLP head'}, batch "
+              f"{bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} ms/step = "
+              f"{bs / ms * 1e3!r} slices/s; {flops / 1e12!r} TFLOP per step (FlopCounterMode: "
+              f"forward and backward) = {tflops!r} TFLOP/s, "
+              f"{100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; peak device "
+              f"memory {peak!r} GiB")
+        if kind == "resnet18":
+            warm = (t, state, batches[0])
+        else:
+            t.net.eval()
+            del t, state, batches
+            torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"cls nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+CLS_RANGES = ("augment", "net", "loss", "Optimizer.step#Adam.step")
+
+
+def _cls_profile(t, state, batch) -> None:
+    """One warm ResNet-18 step under torch.profiler, and which BatchNorm
+    kernels cuDNN takes (NHWC or NCHW)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._train_step(state, batch, 300)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t.net.eval()
+    print(_profile_summary(prof, wall_ms, f"cls profile (one warm ResNet-18 step, batch "
+                           f"{t.batch_size}, TF32 on)", OP_GROUPS_TRAIN, CLS_RANGES))
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == cuda and e.key not in CLS_RANGES]
+    total = sum(v for _, v in kernels) or 1.0
+    bn = [(k, v) for k, v in kernels
+          if any(n in k.lower() for n in ("batchnorm", "batch_norm", "bn_fw", "bn_bw"))]
+    layout = {"NHWC": sum(v for k, v in bn if "nhwc" in k.lower() or "channels_last" in k),
+              "NCHW": sum(v for k, v in bn if "NCHW" in k or "1C11_kernel_new" in k)}
+    print(f"cls profile BatchNorm kernels: "
+          + ", ".join(f"{k[:70]} {100 * v / total:.1f}%" for k, v in sorted(bn, key=lambda kv: -kv[1]))
+          + f"; by layout: NCHW {100 * layout['NCHW'] / total:.1f}%, NHWC "
+            f"{100 * layout['NHWC'] / total:.1f}% of device time")
+
+
+def phase_cls(work: str, data) -> None:
+    """Phase 9 on phase 8's RSNA slices (and its tree under ``work``)."""
+    cfgs = load_cls_cfgs(work)
+    edt.launches = edt.mask_launches = 0
+    t0 = time.perf_counter()
+    tree_ds, lesion = _segich2d_tree(cfgs["con"]["path"]["DATA"])
+    print(f"cls data: SegICH 2D tree of {SEGICH2D_TREE[0]} patients x {SEGICH2D_TREE[1]} slices "
+          f"of {SEGICH2D_TREE[2]}^2 written in {time.perf_counter() - t0!r} s, lesions in patients "
+          f"{lesion}, {int((tree_ds.masks.reshape(len(tree_ds), -1).max(1) > 0).sum())} positive "
+          f"slices")
+    exp = _cls_csv_path(cfgs, work, tree_ds)
+    weights = _cls_pretrain(cfgs["con"], data)
+    _cls_sweep(cfgs["con"], weights, tree_ds, lesion)
+    _cls_resnet(cfgs["con"], work)
+    _cls_brain(cfgs, work, exp, tree_ds)
+    torch.cuda.empty_cache()
+    _cls_holds(cfgs["con"], data)
+    _cls_profile(*_cls_step_times(cfgs["con"], data))
+    launches = _edt_launches()
+    print(f"cls EDT launches on phase 9's paths {launches}")
+    check(not any(launches.values()), "cls: an EDT kernel ran on phase 9's paths")
 
 
 def main() -> None:
@@ -1642,7 +2165,9 @@ def main() -> None:
         phase_train3d(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as work:
-        phase_ssl(work)
+        data = phase_ssl(work)
+        torch.cuda.empty_cache()
+        phase_cls(work, data)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

@@ -1,5 +1,6 @@
 """Dataset loaders (counterpart of :mod:`ich_tpu.data.datasets`): the 3D
-SegICH loader, the RSNA slice loader of SSL pretraining, and the RSNA
+SegICH loader, the brain-extraction 2D loader, the RSNA slice loader of
+pretraining, and the RSNA
 label pivot of ``scripts/data_preparation.py gen-rsna-csv`` as a function.
 CSVs go through the ``csv`` module: the loaders need no pandas."""
 
@@ -14,9 +15,9 @@ import numpy as np
 import torch
 
 from ich_tpu_torch.data import nifti
-from ich_tpu_torch.data.core import LabeledSliceDataset, VolumeDataset3D
+from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D, VolumeDataset3D
 from ich_tpu_torch.data.dicom import read_ct_hu
-from ich_tpu_torch.data.segich import _resize_host
+from ich_tpu_torch.data.segich import _resize_host, load_segich_2d
 from ich_tpu_torch.ops.ct import _resampled_shape, resample_ct, resize_nearest_zoom, window_ct
 
 RSNA_LABEL_COLUMNS = ("Hemorrhage", "epidural", "intraparenchymal", "intraventricular",
@@ -51,6 +52,19 @@ def load_segich_3d(
         masks.append(np.transpose(m.numpy(), (2, 0, 1)))
         ids.append(pid)
     return VolumeDataset3D(vols, masks, np.asarray(ids))
+
+
+def load_brain_extract_2d(
+    data_dir: str,
+    info_df=None,
+    window: Tuple[float, float] = (50, 200),
+    size: int = 256,
+) -> SliceDataset2D:
+    """Brain-mask variant of the 2D loader (reference
+    ``brain_extract_Dataset2D``, ``datasets.py:250-318``): the SegICH 2D
+    schema, the ``mask_fn`` column naming brain masks instead of ICH
+    masks."""
+    return load_segich_2d(data_dir, info_df, window=window, size=size)
 
 
 def _number(text: str):

@@ -4,8 +4,10 @@ into dense arrays.
 
 ``ct_info.csv`` rows (PatientNumber, SliceNumber, CT_fn, mask_fn,
 Hemorrhage) reference per-slice tif images and bmp masks; ``patient_info.csv``
-holds (PatientNumber, Hemorrhage, ...). pandas and PIL are imported inside
-the functions that need them: the synthetic path runs without them.
+holds (PatientNumber, Hemorrhage, ...). Neither pandas nor PIL is needed:
+the CSVs are read into a :class:`ich_tpu_torch.data.table.Table`, the
+images by the numpy TIFF and BMP readers. The functions also take a pandas
+DataFrame where a caller passes one, and then return a DataFrame.
 """
 
 from __future__ import annotations
@@ -16,15 +18,22 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ich_tpu_torch.data.bmp import read_bmp
 from ich_tpu_torch.data.core import SliceDataset2D
+from ich_tpu_torch.data.table import read_csv
+from ich_tpu_torch.data.tiff import read_tiff
 from ich_tpu_torch.ops.ct import window_ct
 
+NO_MASK = ("", "-", "None", "nan")  # mask_fn cells that name no mask file
 
-def _read_image(path: str) -> np.ndarray:
-    from PIL import Image
 
-    with Image.open(path) as im:
-        return np.asarray(im)
+def read_image(path: str) -> np.ndarray:
+    """A ``.tif`` or ``.bmp`` slice as PIL's ``np.asarray(Image.open(path))``."""
+    if path.lower().endswith((".tif", ".tiff")):
+        return read_tiff(path)
+    if path.lower().endswith(".bmp"):
+        return read_bmp(path)
+    raise ValueError(f"{path}: only .tif and .bmp slices are read")
 
 
 def _resize_host(img: np.ndarray, size: int, order: int) -> np.ndarray:
@@ -44,23 +53,24 @@ def load_segich_2d(
     size: int = 256,
 ) -> SliceDataset2D:
     """Decode a (subset of the) publicSegICH2D csv into a SliceDataset2D:
-    images windowed to [0,1] and resized to ``size``; masks binary."""
-    import pandas as pd
-
+    images windowed to [0,1] and resized to ``size``; masks binary.
+    ``info_df`` is a Table or DataFrame of ``ct_info.csv`` rows; None reads
+    the file."""
     if info_df is None:
-        info_df = pd.read_csv(os.path.join(data_dir, "ct_info.csv"), index_col=0)
-    n = len(info_df)
+        info_df = read_csv(os.path.join(data_dir, "ct_info.csv"))
+    rows = info_df.to_dict("records")
+    n = len(rows)
     images = np.zeros((n, size, size), dtype=np.float32)
     masks = np.zeros((n, size, size), dtype=np.float32)
     vol_ids = np.zeros(n, dtype=np.int32)
     slice_nbrs = np.zeros(n, dtype=np.int32)
-    for i, (_, row) in enumerate(info_df.iterrows()):
-        img = _read_image(os.path.join(data_dir, str(row["CT_fn"]))).astype(np.float32)
+    for i, row in enumerate(rows):
+        img = read_image(os.path.join(data_dir, str(row["CT_fn"]))).astype(np.float32)
         img = window_ct(torch.from_numpy(img), window[0], window[1]).numpy()
         images[i] = _resize_host(img, size, order=1)
         mask_fn = row.get("mask_fn", None)
-        if isinstance(mask_fn, str) and mask_fn not in ("", "-", "None", "nan"):
-            m = _read_image(os.path.join(data_dir, mask_fn)).astype(np.float32)
+        if isinstance(mask_fn, str) and mask_fn not in NO_MASK:
+            m = read_image(os.path.join(data_dir, mask_fn)).astype(np.float32)
             masks[i] = _resize_host((m > 0).astype(np.float32), size, order=0)
         vol_ids[i] = int(row["PatientNumber"])
         slice_nbrs[i] = int(row["SliceNumber"])
@@ -69,12 +79,16 @@ def load_segich_2d(
 
 def subsample_negatives(info_df, frac_negative: float, seed: int):
     """Keep at most ``frac_negative x n_positive`` negative slices
-    (reference ``UNet2D_scripts.py:121-123``)."""
-    pos = info_df[info_df.Hemorrhage == 1]
-    neg = info_df[info_df.Hemorrhage == 0]
-    n_remove = int(max(0, len(neg) - frac_negative * len(pos)))
-    removed = neg.sample(n=n_remove, random_state=seed)
-    return info_df[~info_df.index.isin(removed.index)]
+    (reference ``UNet2D_scripts.py:121-123``): the rows pandas'
+    ``neg.sample(n=n_remove, random_state=seed)`` removes, which are
+    ``RandomState(seed).choice(len(neg), n_remove, replace=False)`` of the
+    negative rows; the kept rows stay in the file's order."""
+    hem = np.asarray(info_df["Hemorrhage"])
+    neg = np.flatnonzero(hem == 0)
+    n_remove = int(max(0, len(neg) - frac_negative * int(np.sum(hem == 1))))
+    removed = neg[np.random.RandomState(seed).choice(len(neg), n_remove, replace=False)]
+    index = np.asarray(info_df.index)
+    return info_df[~np.isin(index, index[removed])]
 
 
 def split_summary_table(all_df, train_df, test_df) -> str:
@@ -83,7 +97,8 @@ def split_summary_table(all_df, train_df, test_df) -> str:
     header = f"{'set':<8}{'N total':>10}{'N non-ICH':>12}{'N ICH':>8}{'frac non-ICH':>15}{'frac ICH':>12}"
     lines = [header, "-" * len(header)]
     for df, name in zip([all_df, train_df, test_df], ["All", "Train", "Test"]):
-        n, n0, n1 = len(df), int((df.Hemorrhage == 0).sum()), int((df.Hemorrhage == 1).sum())
+        hem = np.asarray(df["Hemorrhage"])
+        n, n0, n1 = len(df), int((hem == 0).sum()), int((hem == 1).sum())
         lines.append(
             f"{name:<8}{n:>10}{n0:>12}{n1:>8}{n0 / max(n,1):>14.3%}{n1 / max(n,1):>11.3%}"
         )

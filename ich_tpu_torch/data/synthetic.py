@@ -1,20 +1,24 @@
 """Synthetic head-CT-like slices for tests and the on-card smoke run,
 copied from ``ich_tpu/data/synthetic.py`` (``_lesion_mask_2d``,
-``synthetic_ich_slices``, ``synthetic_rsna_slices`` and ``write_rsna_tree``;
-importing ``ich_tpu.data`` imports jax): a skull-like bright ring,
-brain-tissue texture, and ellipsoidal hyperdense "hemorrhage" lesions with
-matching masks, the same arrays and files for the same seed as the JAX
-package's."""
+``synthetic_ich_slices``, ``synthetic_rsna_slices``, ``write_segich_tree``
+and ``write_rsna_tree``; importing ``ich_tpu.data`` imports jax): a
+skull-like bright ring, brain-tissue texture, and ellipsoidal hyperdense
+"hemorrhage" lesions with matching masks, the same arrays and files for the
+same seed as the JAX package's. The SegICH tree is written with the numpy
+TIFF and BMP writers and the ``csv`` module, without PIL or pandas."""
 
 from __future__ import annotations
 
 import csv
 import os
+from typing import Tuple
 
 import numpy as np
 
+from ich_tpu_torch.data.bmp import save_bmp_gray
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
 from ich_tpu_torch.data.dicom import write_minimal_dicom
+from ich_tpu_torch.data.tiff import write_tiff
 
 
 def _lesion_mask_2d(
@@ -113,6 +117,56 @@ def synthetic_rsna_slices(
         if has_ich[i]:
             labels[i, 1 + subtype[i]] = 1.0
     return LabeledSliceDataset(ds.images, labels)
+
+
+def write_segich_tree(
+    dataset: SliceDataset2D,
+    out_dir: str,
+    window: Tuple[float, float] = (50.0, 200.0),
+) -> str:
+    """A SliceDataset2D on disk in the publicSegICH-2D layout:
+
+    - ``Patient_CT/{id:03d}/{slice}.tif`` CT slices (float32 TIFF, the [0,1]
+      intensities un-windowed back to HU),
+    - ``Patient_CT/{id:03d}/{slice}_ICH_Seg.bmp`` 8-bit masks of the
+      positive slices only; ``mask_fn`` is ``None`` on the other rows,
+    - ``ct_info.csv`` (PatientNumber, SliceNumber, CT_fn, mask_fn,
+      Hemorrhage) and ``patient_info.csv`` (PatientNumber, Age, Gender,
+      Hemorrhage), as pandas' ``to_csv`` writes them.
+
+    The same files, byte for byte in the CSVs and pixel for pixel in the
+    images, as the JAX package's writer (which uses pandas and PIL)."""
+    c, w = window
+    os.makedirs(os.path.join(out_dir, "Patient_CT"), exist_ok=True)
+    rows, patients = [], {}
+    for i in range(len(dataset)):
+        vid = int(dataset.vol_ids[i])
+        snb = int(dataset.slice_nbrs[i])
+        os.makedirs(os.path.join(out_dir, "Patient_CT", f"{vid:03d}"), exist_ok=True)
+        hu = dataset.images[i] * w + (c - w / 2.0)
+        ct_fn = f"Patient_CT/{vid:03d}/{snb}.tif"
+        write_tiff(os.path.join(out_dir, ct_fn), hu.astype(np.float32))
+        pos = int(dataset.masks[i].max() > 0)
+        mask_fn = "None"
+        if pos:
+            mask_fn = f"Patient_CT/{vid:03d}/{snb}_ICH_Seg.bmp"
+            save_bmp_gray(os.path.join(out_dir, mask_fn),
+                          ((dataset.masks[i] > 0) * 255).astype(np.uint8))
+        rows.append([i, vid, snb, ct_fn, mask_fn, pos])
+        patients[vid] = max(patients.get(vid, 0), pos)
+    with open(os.path.join(out_dir, "ct_info.csv"), "w", newline="") as f:
+        wtr = csv.writer(f, lineterminator="\n")
+        wtr.writerow(["", "PatientNumber", "SliceNumber", "CT_fn", "mask_fn", "Hemorrhage"])
+        wtr.writerows(rows)
+    # demographics drawn per patient id from a fixed seed, as the JAX writer
+    meta_rng = np.random.default_rng(1234)
+    with open(os.path.join(out_dir, "patient_info.csv"), "w", newline="") as f:
+        wtr = csv.writer(f, lineterminator="\n")
+        wtr.writerow(["", "PatientNumber", "Age", "Gender", "Hemorrhage"])
+        for j, (k, v) in enumerate(sorted(patients.items())):
+            age = int(meta_rng.integers(18, 95))
+            wtr.writerow([j, k, age, "Male" if meta_rng.uniform() < 0.5 else "Female", v])
+    return out_dir
 
 
 def write_rsna_tree(out_dir: str, n_slices: int = 12, size: int = 32, seed: int = 0) -> str:

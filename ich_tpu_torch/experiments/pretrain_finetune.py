@@ -1,4 +1,5 @@
-"""SSL pretraining, then the k-fold supervised fine-tune (counterpart of
+"""Pretraining, then the k-fold supervised fine-tune, and the
+label-efficiency sweep (counterpart of
 :mod:`ich_tpu.experiments.pretrain_finetune`).
 
 - ``pretrain_context_restoration``: patch-swap restoration of a U-Net
@@ -8,17 +9,22 @@
   a ``local`` section, local NT-Xent on the partial U-Net with the
   transferred encoder frozen (``configs/contrastive_global_local.json``),
   under ``pretrain_global`` and ``pretrain_local``;
+- ``pretrain_classifier``: ICH / no-ICH (or, with ``multi``, 7-way
+  multilabel) classification of the RSNA slices by the U-Net encoder with
+  an ``MLP_head + (n_out,)`` head, under ``pretrain_classifier``;
 - ``run_supervised_2d_with_init`` / ``finetune_kfold``: the k-fold
   experiment of :mod:`ich_tpu_torch.experiments.supervised2d` with the
   pretrained weights moved into each fold's U-Net by key intersection; the
-  encoder and, after the local phase, the first decoder stages move.
+  encoder and, after the local phase, the first decoder stages move;
+- ``label_efficiency_sweep``: that fine-tune at several label fractions
+  (BASELINE config 5), each fold's training patients subsampled, with the
+  optional low-label recipe.
 
 Each phase writes ``checkpoint.bin`` (and resumes from it),
-``pretrained.bin`` and ``outputs.json``. Classification pretraining and the
-label-efficiency sweep are not ported yet. Run it as::
+``pretrained.bin`` and ``outputs.json``. Run it as::
 
-    python -m ich_tpu_torch.experiments.pretrain_finetune {context_restoration,contrastive} \\
-        CONFIG.json [--device cuda]
+    python -m ich_tpu_torch.experiments.pretrain_finetune \\
+        {context_restoration,contrastive,classifier} CONFIG.json [--multi] [--device cuda]
 
 which loads the RSNA slices of ``path.RSNA_DATA`` (its ``slice_info.csv``,
 as :func:`ich_tpu_torch.data.datasets.write_rsna_slice_info` writes it),
@@ -31,14 +37,20 @@ import argparse
 import json
 import logging
 import os
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ich_tpu_torch.data.core import LabeledSliceDataset
 from ich_tpu_torch.data.datasets import load_rsna_slices
-from ich_tpu_torch.experiments.supervised2d import build_unet_from_cfg, run_supervised_2d
+from ich_tpu_torch.experiments.supervised2d import (
+    build_unet_from_cfg,
+    run_supervised_2d,
+    subsample_label_fraction,
+)
 from ich_tpu_torch.models.unet import PartialUNet, UNetEncoder
+from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
 from ich_tpu_torch.utils import preemption
 from ich_tpu_torch.utils.logging import setup_logger
@@ -69,14 +81,16 @@ def _phase_dir(cfg: dict, phase: str) -> str:
     return out_dir
 
 
-def build_encoder(cfg: dict) -> UNetEncoder:
-    """The global phase's encoder; the defaults are ``build_unet_from_cfg``'s,
-    so that its weights move into the fine-tune U-Net."""
+def build_encoder(cfg: dict, mlp_head: Optional[Tuple[int, ...]] = None) -> UNetEncoder:
+    """The global phase's encoder (or, with ``mlp_head``, the classifier's);
+    the defaults are ``build_unet_from_cfg``'s, so that its weights move
+    into the fine-tune U-Net."""
     n = cfg["net"]
+    head = mlp_head or tuple(n.get("MLP_head", (256, 128)))
     return _seeded(cfg.get("seed", 42), lambda: UNetEncoder(
         depth=n.get("depth", 5), top_filter=n.get("top_filter", 64),
         midchannels_factor=n.get("midchannels_factor", 2),
-        mlp_head=tuple(n.get("MLP_head", (256, 128))), p_dropout=n.get("p_dropout", 0.0)))
+        mlp_head=head, p_dropout=n.get("p_dropout", 0.0)))
 
 
 def build_partial_unet(cfg: dict) -> PartialUNet:
@@ -160,6 +174,29 @@ def pretrain_contrastive(cfg: dict, dataset, local_dataset=None, aug_pipeline=No
     return weights
 
 
+def pretrain_classifier(cfg: dict, dataset, multi: bool = False,
+                        device: str | torch.device = "cuda") -> StateDict:
+    """ICH / no-ICH (label column 0) or, with ``multi``, 7-way multilabel
+    classification pretraining of the U-Net encoder, its head ``MLP_head +
+    (2,)`` or ``+ (7,)``; returns the pretrained weights."""
+    tr = cfg["train"]
+    n_out = 7 if multi else 2
+    enc = build_encoder(cfg, tuple(cfg["net"].get("MLP_head", (256,))) + (n_out,))
+    cls = (MultiClassifier if multi else BinaryClassifier)(
+        enc, class_weight=tr.get("class_weight"), seed=cfg.get("seed", 42), device=device,
+        **_train_kwargs(tr))
+    labels = np.asarray(dataset.labels)
+    if not multi and labels.ndim > 1:
+        dataset = LabeledSliceDataset(dataset.images, labels[:, 0].astype(np.int32))
+    out_dir = _phase_dir(cfg, "pretrain_classifier")
+    cls.train(dataset, checkpoint_path=os.path.join(out_dir, "checkpoint.bin"))
+    _abort_if_preempted("classification pretrain")
+    cls.evaluate(dataset, print_to_logger=True, save_path=out_dir)
+    cls.save_model(os.path.join(out_dir, "pretrained.bin"))
+    cls.save_outputs(os.path.join(out_dir, "outputs.json"))
+    return cls.get_state_dict()
+
+
 def run_supervised_2d_with_init(cfg: dict, pretrained: Optional[StateDict], datasets_by_fold,
                                 device: str | torch.device = "cuda") -> str:
     """``run_supervised_2d`` with the pretrained weights moved into each
@@ -175,22 +212,73 @@ def finetune_kfold(cfg: dict, pretrained: StateDict, datasets_by_fold,
     return run_supervised_2d_with_init(cfg, pretrained, datasets_by_fold, device)
 
 
+def label_efficiency_sweep(
+    cfg: dict,
+    pretrained: Optional[StateDict],
+    datasets_by_fold: Optional[Callable],
+    fractions: Sequence[float] = (0.1, 0.25, 0.5, 1.0),
+    seed: int = 42,
+    low_label_recipe: Optional[dict] = None,
+    device: str | torch.device = "cuda",
+) -> Dict[float, str]:
+    """The fine-tune at each label ``fraction`` (BASELINE config 5) under
+    ``<exp_name>_frac<100 fraction>``: each fold's training patients
+    subsampled (with ``np.random.default_rng(seed + k)`` on ``datasets_by_fold``'s
+    volumes, or by the CSV path's ``dataset.label_fraction``), the test
+    split whole. ``low_label_recipe`` (``{"below": 0.15, "frac_negative":
+    0.25, "epoch_mult": 2}``): below ``below``, negative slices are capped
+    at ``frac_negative`` x the positive ones and the fine-tune runs
+    ``epoch_mult`` times the epochs. Returns {fraction: output dir}."""
+    results = {}
+    for frac in fractions:
+        sub_cfg = {**cfg, "exp_name": f"{cfg['exp_name']}_frac{int(frac * 100)}",
+                   "dataset": {**cfg.get("dataset", {}), "label_fraction": frac}}
+        if low_label_recipe and frac < low_label_recipe.get("below", 0.15):
+            sub_cfg["dataset"]["frac_negative"] = low_label_recipe.get("frac_negative", 0.25)
+            sub_cfg["train"] = {**cfg["train"], "n_epoch": int(
+                cfg["train"]["n_epoch"] * low_label_recipe.get("epoch_mult", 2))}
+        frac_folds = None  # the CSV path applies dataset.label_fraction itself
+        if datasets_by_fold is not None:
+            def frac_folds(k, frac=frac):
+                train_ds, test_ds = datasets_by_fold(k)
+                if frac < 1.0:
+                    keep = subsample_label_fraction(np.unique(train_ds.vol_ids), frac,
+                                                    np.random.default_rng(seed + k))
+                    train_ds = train_ds.subset(np.nonzero(np.isin(train_ds.vol_ids, keep))[0])
+                return train_ds, test_ds
+        out = run_supervised_2d_with_init(sub_cfg, pretrained, frac_folds, device=device)
+        results[frac] = out
+        logger.info("label fraction %.0f%% -> %s", frac * 100, out)
+    return results
+
+
+def load_pretrain_data(cfg: dict):
+    """The RSNA slices of ``path.RSNA_DATA`` at the config's window and size."""
+    return load_rsna_slices(
+        cfg["path"]["RSNA_DATA"], window=(cfg["data"]["win_center"], cfg["data"]["win_width"]),
+        size=cfg["data"]["size"], n_max=cfg.get("dataset", {}).get("n_max"))
+
+
+PRETRAIN = {"context_restoration": pretrain_context_restoration,
+            "contrastive": pretrain_contrastive, "classifier": pretrain_classifier}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> str:
-    ap = argparse.ArgumentParser(description="SSL pretraining, then the k-fold fine-tune.")
-    ap.add_argument("phase", choices=("context_restoration", "contrastive"))
+    ap = argparse.ArgumentParser(description="Pretraining, then the k-fold fine-tune.")
+    ap.add_argument("phase", choices=tuple(PRETRAIN))
     ap.add_argument("config", help="JSON config (the schema of configs/context_restoration.json "
                                    "or configs/contrastive_global_local.json)")
+    ap.add_argument("--multi", action="store_true",
+                    help="classifier: 7-way multilabel pretraining (default: binary)")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    if args.multi and args.phase != "classifier":
+        ap.error("--multi is an option of the classifier phase")
     with open(args.config) as f:
         cfg = json.load(f)
     setup_logger()
-    ssl_data = load_rsna_slices(
-        cfg["path"]["RSNA_DATA"], window=(cfg["data"]["win_center"], cfg["data"]["win_width"]),
-        size=cfg["data"]["size"], n_max=cfg.get("dataset", {}).get("n_max"))
-    pretrain = (pretrain_context_restoration if args.phase == "context_restoration"
-                else pretrain_contrastive)
-    weights = pretrain(cfg, ssl_data, device=args.device)
+    kw = {"multi": True} if args.multi else {}
+    weights = PRETRAIN[args.phase](cfg, load_pretrain_data(cfg), device=args.device, **kw)
     out = run_supervised_2d_with_init(cfg, weights, None, device=args.device)
     print(f"Artifacts at {out}")
     return out

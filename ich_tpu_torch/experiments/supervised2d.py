@@ -7,7 +7,10 @@ checkpoints and resume, then ``evaluate`` with its CSVs and prediction
 BMPs, ``trained_unet.bin`` and ``outputs.json``; a fold with an
 ``outputs.json`` is skipped. Then the fold aggregate (mean ± 1.96σ),
 ``all_volume_prediction.csv`` and the config re-dump. The JSON config
-schema is the JAX package's (``configs/unet2d.json``).
+schema is the JAX package's (``configs/unet2d.json``). The CSV path reads
+``ct_info.csv`` and ``patient_info.csv`` into :class:`ich_tpu_torch.data.
+table.Table`s and the slices with the numpy TIFF and BMP readers: it needs
+neither pandas nor PIL.
 
 Differences from the JAX experiment: the fold split is :func:`stratified_kfold`
 (numpy; the same folds as scikit-learn's ``StratifiedKFold``), the
@@ -30,6 +33,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ich_tpu_torch.data.segich import load_segich_2d, split_summary_table, subsample_negatives
+from ich_tpu_torch.data.table import read_csv, unique_in_order
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops.metrics import fold_aggregate
 from ich_tpu_torch.ops.transforms import Compose, build_pipeline
@@ -118,7 +123,7 @@ def _concat_volume_csvs(paths: Sequence[str], out_fn: str) -> None:
             header = next(reader)
             rows.extend(reader)
     with open(out_fn, "w", newline="") as f:
-        w = csv.writer(f)
+        w = csv.writer(f, lineterminator="\n")
         w.writerow([""] + header)
         w.writerows([i] + r for i, r in enumerate(rows))
 
@@ -147,18 +152,11 @@ def run_supervised_2d(
     augment_fn = build_augment_fn(cfg["data"].get("augmentation", {}).get("train", {}))
 
     if datasets_by_fold is None:
-        import pandas as pd
-
-        from ich_tpu_torch.data.segich import (
-            load_segich_2d,
-            split_summary_table,
-            subsample_negatives,
-        )
-
-        data_info_df = pd.read_csv(os.path.join(data_dir, "ct_info.csv"), index_col=0)
-        patient_df = pd.read_csv(os.path.join(data_dir, "patient_info.csv"), index_col=0)
+        data_info_df = read_csv(os.path.join(data_dir, "ct_info.csv"))
+        patient_df = read_csv(os.path.join(data_dir, "patient_info.csv"))
+        patient_ids = patient_df["PatientNumber"]
         shuffle = cfg["split"].get("shuffle", True)
-        folds = stratified_kfold(patient_df.Hemorrhage.values, n_fold, shuffle,
+        folds = stratified_kfold(patient_df["Hemorrhage"], n_fold, shuffle,
                                  seed if shuffle else None)
     else:
         folds = range(n_fold)
@@ -179,16 +177,16 @@ def run_supervised_2d(
             train_ds, test_ds = datasets_by_fold(k)
         else:
             train_idx, test_idx = fold  # positions in patient_info.csv
-            train_df = data_info_df[data_info_df.PatientNumber.isin(
-                patient_df.PatientNumber.iloc[train_idx].values)]
-            test_df = data_info_df[data_info_df.PatientNumber.isin(
-                patient_df.PatientNumber.iloc[test_idx].values)]
+            slice_ids = data_info_df["PatientNumber"]
+            train_df = data_info_df[np.isin(slice_ids, patient_ids[train_idx])]
+            test_df = data_info_df[np.isin(slice_ids, patient_ids[test_idx])]
             label_fraction = cfg["dataset"].get("label_fraction", 1.0)
             if label_fraction < 1.0:
+                train_ids = train_df["PatientNumber"]
                 keep = subsample_label_fraction(
-                    train_df.PatientNumber.unique(), label_fraction,
+                    unique_in_order(train_ids), label_fraction,
                     np.random.default_rng(seed + k))
-                train_df = train_df[train_df.PatientNumber.isin(keep)]
+                train_df = train_df[np.isin(train_ids, keep)]
             train_df = subsample_negatives(train_df, cfg["dataset"]["frac_negative"], seed)
             logger.info("\n%s", split_summary_table(data_info_df, train_df, test_df))
             train_ds = load_segich_2d(data_dir, train_df, window=win, size=size)

@@ -1,11 +1,13 @@
-"""Convert the JAX package's U-Net family variables to port ``state_dict``s.
+"""Convert the JAX package's U-Net family and ResNet variables to port
+``state_dict``s.
 
 The inverse of ``ich_tpu.interop.torch_port``'s ``port_unet``,
-``port_unet_encoder`` and ``port_partial_unet``: flax variables
-``{"params": ..., "batch_stats": ...}`` of :class:`ich_tpu.models.UNet`,
-``UNetEncoder`` or ``PartialUNet``, as plain numpy nests, become ``{torch
-key: numpy array}`` for their counterparts in
-:mod:`ich_tpu_torch.models.unet`. Layouts converted:
+``port_unet_encoder``, ``port_partial_unet`` and ``port_resnet``: flax
+variables ``{"params": ..., "batch_stats": ...}`` of
+:class:`ich_tpu.models.UNet`, ``UNetEncoder``, ``PartialUNet`` or
+``ResNet``, as plain numpy nests, become ``{torch key: numpy array}`` for
+their counterparts in :mod:`ich_tpu_torch.models.unet` and
+:mod:`ich_tpu_torch.models.resnet`. Layouts converted:
 
 - conv kernels: flax HWIO / DHWIO -> torch OIHW / OIDHW;
 - transposed-conv kernels: flax ``(*k, I, O)`` -> torch ``(I, O, *k)``, with
@@ -119,6 +121,28 @@ def unet_encoder_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
     head = e.params["mlp_head"]
     for i in range(len(head)):
         e.dense(f"mlp_head/fc{i}", f"mlp_head.fc_layers.{i}")
+    return e.sd
+
+
+def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``ResNet`` variables -> port ``ResNet`` ``state_dict``: the stem,
+    every ``stage{s}_block{b}`` (two convs for a basic block, three for a
+    bottleneck, and the downsample branch where there is one) and ``fc``."""
+    e = _Emitter(variables)
+    e.conv("stem_conv", "conv1")
+    e.norm("stem_bn", "bn1")
+    blocks = sorted((tuple(int(n) for n in k[len("stage"):].split("_block")), k)
+                    for k in e.params if k.startswith("stage"))
+    for (s, b), fname in blocks:
+        t = f"layer{s + 1}.{b}"
+        for i in (1, 2, 3):
+            if f"conv{i}" in e.params[fname]:
+                e.conv(f"{fname}/conv{i}", f"{t}.conv{i}")
+                e.norm(f"{fname}/bn{i}", f"{t}.bn{i}")
+        if "down_conv" in e.params[fname]:
+            e.conv(f"{fname}/down_conv", f"{t}.shortcut.0")
+            e.norm(f"{fname}/down_bn", f"{t}.shortcut.1")
+    e.dense("fc", "linear")
     return e.sd
 
 

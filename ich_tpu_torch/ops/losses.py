@@ -4,7 +4,8 @@ Ported: the segmentation losses (``binary_dice_loss``, ``tversky_loss``,
 ``combo_loss``), DiscountedL1, the caller of the EDT kernel, the
 contrastive losses of SSL pretraining (``info_nce_loss``,
 ``local_info_nce_loss`` with ``sample_region_cells``) and the
-reconstruction losses (``mse_loss``, ``l1_loss``). Layout is NHWC, as in
+reconstruction losses (``mse_loss``, ``l1_loss``) and the classifier
+losses (``softmax_cross_entropy``, ``weighted_bce_with_logits``). Layout is NHWC, as in
 the JAX package, and every loss computes in float32. The ``LOSSES``
 registry carries them under the reference's class names.
 """
@@ -198,6 +199,32 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -
     return _reduce(torch.abs(pred.to(torch.float32) - target.to(torch.float32)), reduction)
 
 
+def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                             pos_weight: float = 1.0) -> torch.Tensor:
+    """Binary cross entropy on logits with the positive term weighted by
+    ``pos_weight``, averaged over every element (the multilabel
+    classifier's loss)."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    return -torch.mean(pos_weight * labels * F.logsigmoid(logits)
+                       + (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross entropy of (B, K) logits against (B,) integer labels, softmax
+    applied once; with ``class_weights`` (K,), each sample's term weighted
+    by its class's weight and the sum divided by the sum of the weights
+    used (at least 1e-8)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    labels = labels.to(torch.long)
+    nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+    if class_weights is None:
+        return torch.mean(nll)
+    w = torch.as_tensor(class_weights, dtype=torch.float32, device=nll.device)[labels]
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+
+
 def _factory(fn: Callable, **defaults) -> Callable:
     def make(**kwargs):
         cfg = {**defaults, **kwargs}
@@ -217,3 +244,10 @@ LOSSES.add("LocalInfoNCELoss", lambda tau=0.5, K=3, n_region=13, **kw: functools
 LOSSES.add("DiscountedL1", _factory(discounted_l1_loss))
 LOSSES.add("MSELoss", _factory(mse_loss))
 LOSSES.add("L1Loss", _factory(l1_loss))
+# torch loss names used by the classification-pretraining configs
+LOSSES.add("CrossEntropyLoss", lambda weight=None, **kw: functools.partial(
+    softmax_cross_entropy,
+    class_weights=torch.as_tensor(weight, dtype=torch.float32) if weight is not None else None))
+LOSSES.add("BCEWithLogitsLoss", lambda pos_weight=1.0, **kw: functools.partial(
+    weighted_bce_with_logits,
+    pos_weight=float(pos_weight[0] if isinstance(pos_weight, (list, tuple)) else pos_weight)))

@@ -52,7 +52,6 @@ from ich_tpu_torch.utils.pipeline import fetch_pipelined
 logger = logging.getLogger(__name__)
 
 SLICE_COLUMNS = ("volID", "slice", "label", "TP", "TN", "FP", "FN", "pred_fn", "Dice")
-VOLUME_COLUMNS = ("label", "TP", "TN", "FP", "FN", "Dice")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -96,12 +95,44 @@ def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> No
 
 
 def write_csv(path: str, header: Sequence[str], rows: Iterable[Sequence]) -> None:
-    """A header row, then ``rows``; numbers as ``str`` gives them, which is
-    how pandas' ``to_csv`` writes ints and float64s."""
+    """A header row, then ``rows``; numbers as ``str`` gives them and lines
+    ended by ``\\n``, which is how pandas' ``to_csv`` writes ints and
+    float64s."""
     with open(path, "w", newline="") as f:
-        w = csv.writer(f)
+        w = csv.writer(f, lineterminator="\n")
         w.writerow(header)
         w.writerows(rows)
+
+
+def volume_table(cols: Dict[str, Sequence], sums: Sequence[str]) -> Tuple[np.ndarray, dict]:
+    """Per-slice columns (``volID``, ``label`` and the count columns
+    ``sums``) aggregated per volume as pandas' ``groupby("volID")`` does:
+    the sorted volume ids and, per volume, the max label, the sums and the
+    smoothed Dice."""
+    vol_ids, inv = np.unique(np.asarray(cols["volID"], dtype=np.int64), return_inverse=True)
+    vol = {"label": np.zeros(len(vol_ids), np.int64)}
+    np.maximum.at(vol["label"], inv, np.asarray(cols["label"], dtype=np.int64))
+    for k in sums:
+        vol[k] = np.bincount(inv, weights=np.asarray(cols[k], np.float64), minlength=len(vol_ids))
+    vol["Dice"] = dice_from_counts(vol["TP"], vol["FP"], vol["FN"])
+    return vol_ids, vol
+
+
+def write_score_csvs(out_dir: str, cols: Dict[str, Sequence], slice_columns: Sequence[str],
+                     sums: Sequence[str]) -> Tuple[np.ndarray, dict]:
+    """``slice_prediction_scores.csv`` (a leading index, then
+    ``slice_columns``) and ``volume_prediction_scores.csv`` (``volID``,
+    ``label``, ``sums``, ``Dice``) as the JAX package's pandas frames write
+    them; returns :func:`volume_table`."""
+    arrs = {c: np.asarray(cols[c]) for c in slice_columns}
+    n = len(arrs[slice_columns[0]])
+    write_csv(os.path.join(out_dir, "slice_prediction_scores.csv"), ("",) + tuple(slice_columns),
+              ([i] + [arrs[c][i].item() for c in slice_columns] for i in range(n)))
+    vol_ids, vol = volume_table(cols, sums)
+    vcols = ("label",) + tuple(sums) + ("Dice",)
+    write_csv(os.path.join(out_dir, "volume_prediction_scores.csv"), ("volID",) + vcols,
+              ([v.item()] + [vol[c][i].item() for c in vcols] for i, v in enumerate(vol_ids)))
+    return vol_ids, vol
 
 
 class UNet2D:
@@ -340,20 +371,11 @@ class UNet2D:
         cols = {k: np.asarray(v, dtype=np.float64 if k in ("TP", "TN", "FP", "FN") else None)
                 for k, v in rows.items()}
         cols["Dice"] = dice_from_counts(cols["TP"], cols["FP"], cols["FN"])
-        vol_ids, inv = np.unique(cols["volID"], return_inverse=True)
-        vol = {"label": np.zeros(len(vol_ids), np.int64)}
-        np.maximum.at(vol["label"], inv, cols["label"])
-        for k in ("TP", "TN", "FP", "FN"):
-            vol[k] = np.bincount(inv, weights=cols[k], minlength=len(vol_ids))
-        vol["Dice"] = dice_from_counts(vol["TP"], vol["FP"], vol["FN"])
+        sums = ("TP", "TN", "FP", "FN")
         if save_path:
-            write_csv(os.path.join(save_path, "slice_prediction_scores.csv"),
-                      ("",) + SLICE_COLUMNS,
-                      ([i] + [cols[c][i].item() for c in SLICE_COLUMNS] for i in range(n)))
-            write_csv(os.path.join(save_path, "volume_prediction_scores.csv"),
-                      ("volID",) + VOLUME_COLUMNS,
-                      ([v.item()] + [vol[c][i].item() for c in VOLUME_COLUMNS]
-                       for i, v in enumerate(vol_ids)))
+            _, vol = write_score_csvs(save_path, cols, SLICE_COLUMNS, sums)
+        else:
+            _, vol = volume_table(cols, sums)
 
         pos = vol["label"] == 1
         avg_all = float(np.mean(vol["Dice"]))

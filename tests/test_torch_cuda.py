@@ -9,13 +9,15 @@ import numpy as np
 import pytest
 import torch
 
-from ich_tpu_torch.data.core import VolumeDataset3D
+from ich_tpu_torch.data.core import LabeledSliceDataset, VolumeDataset3D
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
-from ich_tpu_torch.data.synthetic import synthetic_ich_slices
+from ich_tpu_torch.data.synthetic import synthetic_ich_slices, synthetic_rsna_slices
+from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import PartialUNet, UNet, UNetEncoder
 from ich_tpu_torch.ops import edt
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
+from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
@@ -373,3 +375,93 @@ def test_ssl_steps_card_match_cpu(card, kind, monkeypatch):
     b = torch.cat([v.flatten().cpu() for v in gpu.net.state_dict().values()
                    if v.is_floating_point()])
     assert float((a - b).abs().max()) <= 2 * 2 * 1e-3 * 1.005
+
+
+def _classifier_pair(kind):
+    torch.manual_seed(0)
+    if kind == "resnet18":
+        make, trainer = lambda: resnet18(num_classes=2), BinaryClassifier  # noqa: E731
+    else:
+        n_out = 7 if kind == "multi" else 2
+        make = lambda: UNetEncoder(depth=3, top_filter=8, p_dropout=0.0,  # noqa: E731
+                                   mlp_head=(32, n_out))
+        trainer = MultiClassifier if kind == "multi" else BinaryClassifier
+    net = make()
+    sd = {k: v.clone() for k, v in net.state_dict().items()}
+    out = []
+    for dev, n in (("cpu", net), ("cuda", make())):
+        n.load_state_dict(sd)
+        out.append(trainer(n, n_epoch=1, batch_size=8, lr=1e-3, seed=0, device=dev))
+    return out
+
+
+def _classifier_step1(kind, ds, dtype=torch.float32):
+    """The step-1 loss and gradient of the CPU and the card from the same
+    weights, the net (parameters and compute dtype) and the batch in
+    ``dtype``."""
+    out = []
+    for t in _classifier_pair(kind):
+        t.net.to(dtype)
+        if hasattr(t.net, "dtype"):  # the U-Net casts its input to its compute dtype
+            t.net.dtype = dtype
+        state = t._train_state(2)
+        t.net.train()
+        images, labels = next(t._labelled_batches(ds, [np.arange(8)]))
+        loss = t._step(state, (images.to(dtype), labels), t._generator(0))
+        out.append((float(loss), torch.cat([p.grad.flatten().cpu() for p in t.net.parameters()])))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["binary", "multi", "resnet18"])
+def test_classifier_steps_card_match_cpu(card, kind):
+    """Each classifier from the same weights on 16 RSNA-like slices (32^2,
+    64^2 for ResNet-18), batch 8, TF32 off, no augmentation, on the card
+    and the CPU. The first step in float32: the loss within rtol 1e-5; in
+    float64: the gradient within 1e-6 in norm (in float32 the ResNet's
+    differs by 1.7%, in float64 by 5e-8: its stem's weight gradient, passed
+    back through 17 BatchNorms over few values, cancels heavily). An epoch of two steps in float32:
+    every weight within Adam's 2 lr a step (at fresh weights many gradients
+    are float32 rounding, whose sign decides Adam's first steps). The
+    scores of every slice from the same trained weights within 1e-4."""
+    ds = synthetic_rsna_slices(n_slices=16, size=64 if kind == "resnet18" else 32, seed=0)
+    if kind != "multi":
+        ds = LabeledSliceDataset(ds.images, ds.labels[:, 0].astype(np.int32))
+    (lc, _), (lg, _) = _classifier_step1(kind, ds)
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    (_, gc), (_, gg) = _classifier_step1(kind, ds, torch.float64)
+    assert float((gc - gg).norm()) <= 1e-6 * float(gc.norm())
+
+    cpu, gpu = _classifier_pair(kind)
+    cpu.train(ds)
+    gpu.train(ds.device_cache("cuda"))
+    a = torch.cat([v.flatten() for v in cpu.net.state_dict().values() if v.is_floating_point()])
+    b = torch.cat([v.flatten().cpu() for v in gpu.net.state_dict().values()
+                   if v.is_floating_point()])
+    assert float((a - b).abs().max()) <= 2 * 2 * 1e-3 * 1.005
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    np.testing.assert_allclose(gpu.predict_scores(ds.images), cpu.predict_scores(ds.images),
+                               rtol=0, atol=1e-4)
+
+
+def test_resnet_card_matches_cpu(card):
+    """ResNet-18 at 64^2 in eval mode (logits and features within 1e-4)
+    and one train-mode pass (the running statistics within rtol 1e-4)."""
+    torch.manual_seed(0)
+    net = resnet18(num_classes=2)
+    gpu = resnet18(num_classes=2).cuda()
+    gpu.load_state_dict(net.state_dict())
+    x = torch.randn(4, 1, 64, 64)
+    for m in (net, gpu):
+        m.eval()
+    with torch.no_grad():
+        lc, fc = net(x, return_features=True)
+        lg, fg = gpu(x.cuda(), return_features=True)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        torch.testing.assert_close(fg.cpu(), fc, rtol=0, atol=1e-4)
+        net.train()
+        gpu.train()
+        net(x)
+        gpu(x.cuda())
+    for k, v in net.state_dict().items():
+        if "running" in k:
+            torch.testing.assert_close(gpu.state_dict()[k].cpu(), v, rtol=1e-4, atol=1e-6)
