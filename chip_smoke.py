@@ -124,13 +124,45 @@ its last line:
    held as phase 8's; (g) warm step times, slices/s, FLOPs and their rate,
    and peak memory of ``cls_encoder_bs64`` and ``cls_resnet18_bs64`` with
    TF32, and a profile of one warm ResNet-18 step with the BatchNorm
-   kernels cuDNN takes (NHWC or NCHW).
+   kernels cuDNN takes (NHWC or NCHW);
+10. the SN-PatchGAN and the inpainting anomaly detector at the width of
+   ``configs/inpainting_gan.json`` (``SAGatedGenerator`` lat 32, the
+   spectral-norm ``PatchDiscriminator`` 64-128-256-256-256-256 with
+   self-attention, batch 16 of 256x256, float32 with TF32, lr_g 1e-4, lr_d
+   4e-4, lambda_L1 = lambda_gan = 0.5, gammaL1 0.99, the config's mask
+   ranges), on phase 8's RSNA tree and phase 9's ResNet-18 weights: (a)
+   ``python -m ich_tpu_torch.experiments.inpainting_gan`` on the non-ICH
+   slices for ``GAN_EPOCHS`` epochs (the config: 50) with a checkpoint each
+   epoch, the artifacts, finite losses and a falling L1 checked, and both
+   EDT counters equal to 2 x the train steps; ``SNPatchGAN.validate`` of
+   the saved generator (256 x 768 PNGs); (b) the CLI again with one more
+   epoch, resumed from (a)'s checkpoint: exactly one epoch runs; (c) card
+   against CPU with TF32 off: three full-width steps at batch 2 with
+   injected masks (the step-1 D loss and L1; the 3-step D loss and L1
+   within a quarter of what one optimizer step changes them by; 99% of each
+   net's weights within a tenth of one Adam step and all within Adam's
+   bound; the spectral-norm u and the BatchNorm statistics against the
+   CPU's own thread-count spread), one forward and backward of
+   ``GatedGenerator`` with contextual attention, the mask render (equal but
+   at stroke-edge pixels), morphology and hysteresis (equal); (d) ``python
+   -m ich_tpu_torch.experiments.ad_inpainting`` with (a)'s generator and the
+   ResNet-18 gate (threshold 0: every slice scored) on a SegICH 2D tree of
+   ``AD_TREE`` slices of 512^2 at the JAX defaults (holes 32x32, step 16,
+   batch 16, n_iter 3, angles +-7.5 and +-15, flip), with
+   ``--export-attention``; the CSVs, ``info.csv`` and the maps checked; one
+   slice's ``robust_anomaly_detect`` and one ``detect`` timed with their
+   generator calls counted; (e) ``gan_sa_bs16`` and ``gan_ctx_bs16``
+   (``GatedGenerator`` with contextual attention): warm step times,
+   slices/s, FLOPs and their rate, peak memory, the generator's inference
+   at batch 16 and 1, and a profile of one warm ``gan_sa_bs16`` step
+   (ranges ``masks``, ``d_step``, ``g_step``, ``edt_loss``).
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training, SSL and phase 9 paths must read 0). The line before the last is a JSON object with each
-kernel's launches on the path that runs it (the 2.5D serve's EDT leg), its
-error against the plain version, both times and its bound; the last line is
-``{"ok": true, "device": {...}}``.
+read just after (the training, SSL and phase 9 paths must read 0). The line
+before the last is a JSON object with each EDT kernel's launches on the
+path that owns it (the GAN training of phase 10 (a)), its launches by path
+(phase 4's EDT leg too), its error against the plain version, both times
+and its bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -159,6 +191,9 @@ from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
 from ich_tpu_torch.data.datasets import load_rsna_slices, load_segich_3d, write_rsna_slice_info
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
+from ich_tpu_torch.data.png import read_png_gray
+from ich_tpu_torch.data.segich import load_segich_2d
+from ich_tpu_torch.experiments import ad_inpainting, inpainting_gan
 from ich_tpu_torch.experiments import binary_resnet, brain_extraction, pred_on_brain, segment_brain
 from ich_tpu_torch.experiments import supervised2d
 from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
@@ -185,10 +220,13 @@ from ich_tpu_torch.experiments.supervised3d import (
     split_test,
 )
 from ich_tpu_torch.kernels import _build
+from ich_tpu_torch.models.inpainting import GatedGenerator, PatchDiscriminator, SAGatedGenerator
 from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
 from ich_tpu_torch.ops import losses as losses_mod
+from ich_tpu_torch.ops import morphology as morph
+from ich_tpu_torch.ops.masks import draw_ff_masks, random_ff_masks, render_ff_masks
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops.transforms import build_pipeline
 from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmentation
@@ -196,6 +234,8 @@ from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
+from ich_tpu_torch.train.gan import SNPatchGAN
+from ich_tpu_torch.train.inpaint_ad import robust_anomaly_detect
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
@@ -263,6 +303,12 @@ BRAIN_VOLS = 2  # 512x512x40 NIfTIs for segment_brain
 CLS_HOLD_BATCH = 2
 CLS_TIMED = (("cls_encoder_bs64", "binary", 64), ("cls_resnet18_bs64", "resnet18", 64))
 NOT_ON_THE_CARD = ("pandas", "PIL", "sklearn")  # the port runs without them
+# phase 10: configs/inpainting_gan.json at its width on phase 8's RSNA slices
+GAN_CFG = "configs/inpainting_gan.json"
+GAN_EPOCHS = 2  # the config: 50
+GAN_HOLD_BATCH = 2  # the card/CPU hold (the CPU's step time)
+GAN_TIMED = (("gan_sa_bs16", True, 16), ("gan_ctx_bs16", False, 16))
+AD_TREE = (2, 3, 512)  # the detector's SegICH 2D tree: patients, slices each, side
 DEV = "cuda"
 
 
@@ -1378,7 +1424,7 @@ def _ssl_folds(cfg: dict) -> list:
 
 
 def _edt_launches() -> dict:
-    return {"edt_envelope_pass": edt.launches, "edt_mask_rows": edt.mask_launches}
+    return {"edt_envelope_pass": edt.launches, "distance_transform_edt_kernel": edt.mask_launches}
 
 
 def _ssl_cr_driver(cfg: dict, data) -> dict:
@@ -2147,6 +2193,480 @@ def phase_cls(work: str, data) -> None:
     check(not any(launches.values()), "cls: an EDT kernel ran on phase 9's paths")
 
 
+# -- phase 10: the SN-PatchGAN and the inpainting anomaly detector ------------------
+
+def load_gan_cfg(work: str) -> dict:
+    """``configs/inpainting_gan.json`` (its width as it is) reading phase 8's
+    RSNA tree, cut to ``GAN_EPOCHS`` epochs with a checkpoint every epoch."""
+    with open(GAN_CFG) as f:
+        cfg = json.load(f)
+    cfg["path"] = {"RSNA_DATA": os.path.join(work, "rsna", "stage_2_train"),
+                   "OUTPUT": os.path.join(work, "out")}
+    cfg["train"].update(n_epoch=GAN_EPOCHS, checkpoint_freq=1)
+    return cfg
+
+
+def _gan_history(out: str) -> list:
+    with open(os.path.join(out, "outputs.json")) as f:
+        return json.load(f)["train"]["evolution"]
+
+
+def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
+    """(a) the GAN CLI for ``GAN_EPOCHS`` epochs and the saved generator's
+    validation, then (b) once more with one epoch more, resumed; returns
+    the output dir and the EDT launches and train steps of (a)."""
+    bs = cfg["train"]["batch_size"]
+    n_normal = len(normal)
+    spe = n_normal // bs
+    fn = _write_cfg(cfg, os.path.join(work, "gan.json"))
+    edt.launches = edt.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = inpainting_gan.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _edt_launches()
+    steps = spe * GAN_EPOCHS
+    for name in ("checkpoint.bin", "snpatchgan.bin", "outputs.json"):
+        check(os.path.exists(os.path.join(out, name)), f"gan: no {name}")
+    hist = _gan_history(out)
+    # the CLI validates every 5 epochs: validate the saved generator instead
+    gan = inpainting_gan.build_gan(cfg, DEV)
+    gan.load_model(os.path.join(out, "snpatchgan.bin"))
+    valid_dir = os.path.join(work, "gan_valid")
+    l1_valid = gan.validate(LabeledSliceDataset(normal, np.zeros(n_normal, np.int32)),
+                            save_path=valid_dir, epoch=GAN_EPOCHS)
+    pngs = [read_png_gray(os.path.join(valid_dir, f"valid_ep{GAN_EPOCHS}_{i}.png"))
+            for i in range(min(8, bs))]
+    png = pngs[0]
+    del gan
+    n = cfg["net"]
+    print(f"gan (a) inpainting_gan CLI ({GAN_CFG}: SAGatedGenerator lat {n['lat_channels']}, "
+          f"PatchDiscriminator {n['disc_channels']} with SN and self-attention, batch {bs} of "
+          f"{cfg['data']['size']}^2, lr_g {cfg['train']['lr_g']}, lr_d {cfg['train']['lr_d']}): "
+          f"{n_normal} non-ICH slices, {GAN_EPOCHS} epochs x {spe} steps with a checkpoint each "
+          f"epoch in {wall!r} s (RSNA load included); [epoch, G, D, L1] {hist!r}; the saved "
+          f"generator's validation masked L1 {l1_valid!r}, {len(pngs)} PNGs of {png.shape}; EDT "
+          f"launches on the path {launches} for {steps} steps")
+    check(len(hist) == GAN_EPOCHS and all(np.isfinite(r[1:]).all() for r in hist),
+          f"gan: losses not finite {hist}")
+    check(hist[-1][3] < hist[0][3], f"gan: L1 did not fall {hist}")
+    check(np.isfinite(l1_valid) and all(p.shape == (cfg["data"]["size"], 3 * cfg["data"]["size"])
+                                        for p in pngs), f"gan: validation {l1_valid} {png.shape}")
+    check(all(v == 2 * steps for v in launches.values()),
+          f"gan: EDT launches {launches} != 2 x {steps} steps")
+
+    resumed = {**cfg, "train": {**cfg["train"], "n_epoch": GAN_EPOCHS + 1}}
+    fn = _write_cfg(resumed, os.path.join(work, "gan_resume.json"))
+    edt.launches = edt.mask_launches = 0
+    t0 = time.perf_counter()
+    inpainting_gan.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist2, more = _gan_history(out), _edt_launches()
+    print(f"gan (b) resumed to {GAN_EPOCHS + 1} epochs in {wall!r} s: [epoch, G, D, L1] "
+          f"{hist2!r}; EDT launches {more}")
+    check(len(hist2) == GAN_EPOCHS + 1 and hist2[:GAN_EPOCHS] == hist,
+          "gan: the resume did not run exactly one more epoch")
+    check(all(v == 2 * spe for v in more.values()), f"gan resume: EDT launches {more}")
+    return out, launches, steps
+
+
+def _gan_trainer(cfg: dict, device, batch: int, self_attention: bool = True,
+                 n_epoch: int = 1) -> SNPatchGAN:
+    """A full-width SN-PatchGAN from seeded weights."""
+    n, tr = cfg["net"], cfg["train"]
+    g_cls = SAGatedGenerator if self_attention else GatedGenerator
+    g = _seeded(SEED, lambda: g_cls(lat_channels=n["lat_channels"]))
+    d = _seeded(SEED + 1, lambda: PatchDiscriminator(out_channels=tuple(n["disc_channels"])))
+    return SNPatchGAN(g, d, n_epoch=n_epoch, batch_size=batch, lr_g=tr["lr_g"], lr_d=tr["lr_d"],
+                      lambda_L1=tr["lambda_L1"], lambda_gan=tr["lambda_gan"],
+                      gammaL1=tr["gammaL1"], mask_kwargs=cfg["mask"], seed=SEED, device=device)
+
+
+def _gan_hold_run(cfg: dict, dev, x: np.ndarray, masks: torch.Tensor, threads: int) -> dict:
+    """Three steps on one batch with the masks injected: the losses, both
+    nets' weights before the first step, after it and after the third, the
+    spectral-norm u and the BatchNorm statistics after the third."""
+    torch.set_num_threads(threads)
+    t = _gan_trainer(cfg, dev, len(x))
+    state = t._train_state(1)
+    t.generator.train(), t.discriminator.train()
+    imgs = torch.from_numpy(x).to(t.device)
+
+    def cat(net, keep):
+        return torch.cat([v.detach().flatten().cpu() for k, v in net.state_dict().items()
+                          if keep(k)])
+
+    def params(suffix=""):
+        return {"g" + suffix: torch.cat([p.detach().flatten().cpu()
+                                         for p in t.generator.parameters()]),
+                "d" + suffix: torch.cat([p.detach().flatten().cpu()
+                                         for p in t.discriminator.parameters()])}
+
+    losses, first = [], params("0")
+    for i in range(3):
+        losses.append([float(v) for v in t._step(state, imgs, None, masks=masks.to(t.device))])
+        if i == 0:
+            first.update(params("1"))
+    return {"losses": losses, **first, **params(),
+            "u": cat(t.discriminator, lambda k: k.endswith((".u", ".sigma"))),
+            "stats": torch.cat([cat(net, lambda k: "running" in k)
+                                for net in (t.generator, t.discriminator)]),
+            "lrs": {"g": [state.g_schedule(i) for i in range(3)],
+                    "d": [state.d_schedule(i) for i in range(3)]}}
+
+
+def adam_bound(lrs, beta1: float, beta2: float = 0.999) -> float:
+    """Twice the most Adam can move one weight over ``len(lrs)`` steps (L2
+    decay aside): step t moves it by at most c_t lr_t, c_t = sqrt(sum_i
+    a_i^2 / b_i) over the bias-corrected weights a_i of the first moment and
+    b_i of the second (Cauchy-Schwarz): 1, 1.054, 1.133 for beta1 0.5."""
+    out = 0.0
+    for t, lr in enumerate(lrs, start=1):
+        a = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t) for i in range(1, t + 1)]
+        b = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t) for i in range(1, t + 1)]
+        out += lr * sum(x * x / y for x, y in zip(a, b)) ** 0.5
+    return 2 * out
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def _share_within(a: torch.Tensor, b: torch.Tensor, atol: float) -> float:
+    return float(((a - b).abs() <= atol).double().mean())
+
+
+def _quantile(x: torch.Tensor, q: float) -> float:
+    return float(np.quantile(x.abs().numpy(), q))
+
+
+def _stroke_edges(draws: dict, shape) -> np.ndarray:
+    """(B, H, W): pixels within 1e-4 of a valid stroke segment's edge, from
+    the draws in float64 (the render's float32 may fall either side)."""
+    h, w = shape
+    d = {k: v.cpu().numpy().astype(np.float64) for k, v in draws.items()}
+    b, _, v = d["angs"].shape
+    a = d["beta"][..., None] + d["angs"] + np.where(np.arange(v) % 2 == 0, np.pi, 0.0)
+    ys = np.concatenate([d["sy"][..., None], d["sy"][..., None]
+                         + np.cumsum(d["lens"] * np.cos(a), -1)], -1)
+    xs = np.concatenate([d["sx"][..., None], d["sx"][..., None]
+                         + np.cumsum(d["lens"] * np.sin(a), -1)], -1)
+    py, px = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = np.zeros((b, h, w), bool)
+    for i in range(b):
+        for s in range(int(d["n_strokes"][i])):
+            for j in range(int(d["n_vert"][i, s])):
+                y0, x0 = ys[i, s, j], xs[i, s, j]
+                dy, dx = ys[i, s, j + 1] - y0, xs[i, s, j + 1] - x0
+                t = np.clip(((py - y0) * dy + (px - x0) * dx) / (dy * dy + dx * dx + 1e-8), 0, 1)
+                dist = np.hypot(py - y0 - t * dy, px - x0 - t * dx)
+                out[i] |= np.abs(dist - d["width"][i, s] / 2.0) < 1e-4
+    return out
+
+
+def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
+    """(c) card against CPU with TF32 off: three full-width steps, the
+    contextual-attention generator's forward and backward, the mask
+    render, morphology and hysteresis."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = torch.get_num_threads()
+    size = cfg["data"]["size"]
+    x = normal[:GAN_HOLD_BATCH]
+    masks = random_ff_masks(torch.Generator().manual_seed(SEED), len(x), (size, size),
+                            **cfg["mask"])
+    card, cpu, ref = (_gan_hold_run(cfg, dev, x, masks, threads)
+                      for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))))
+    torch.set_num_threads(n)
+    step1 = max(abs(a - b) / abs(b) for a, b in zip(card["losses"][0][1:], cpu["losses"][0][1:]))
+    # the 3-step D loss and L1 (the G loss sits near 0: its relative gap
+    # says little): a skipped or wrong optimizer step moves the card's
+    # trajectory by about what one step changes it by on the CPU, and the
+    # limit is a quarter of the least such change
+    traj, traj_ref, traj_lim = {}, {}, {}
+    for col, name in ((1, "D"), (2, "L1")):
+        c = [row[col] for row in cpu["losses"]]
+        traj[name] = _rel([row[col] for row in card["losses"]], c)
+        traj_ref[name] = _rel([row[col] for row in ref["losses"]], c)
+        traj_lim[name] = min(abs(b - a) / abs(b) for a, b in zip(c, c[1:])) / 4
+    # the weights: Adam's first step moves every weight by lr times the sign
+    # of its gradient, whatever the gradient's size, so after one step two
+    # runs agree to rounding wherever the signs agree and differ by 2 lr
+    # where a gradient at float32's noise floor flips (a conv bias before
+    # BatchNorm; about 0.7% of G's weights and 0.4% of D's CPU against CPU):
+    # 98% of each net's weights within a tenth of lr after the first step
+    # (a skipped step leaves only those its first step moved by less, a
+    # sign-flipped one almost none); after the
+    # third, where the discriminator's noisy biases have reached the
+    # generator's gradient through D's eval-mode output, all within Adam's
+    # bound
+    bounds = {k: adam_bound(cpu["lrs"][k], 0.5) + 1e-6 for k in ("g", "d")}
+    tight = {k: cpu["lrs"][k][0] / 10 for k in ("g", "d")}
+    share = {k: _share_within(card[k + "1"], cpu[k + "1"], tight[k]) for k in ("g", "d")}
+    share_ref = {k: _share_within(ref[k + "1"], cpu[k + "1"], tight[k]) for k in ("g", "d")}
+    share_skip = {k: _share_within(cpu[k + "0"], cpu[k + "1"], tight[k]) for k in ("g", "d")}
+    share3 = {k: _share_within(card[k], cpu[k], tight[k]) for k in ("g", "d")}
+    share3_ref = {k: _share_within(ref[k], cpu[k], tight[k]) for k in ("g", "d")}
+    q99 = {k: _quantile(card[k] - cpu[k], 0.99) for k in ("g", "d")}
+    q99_ref = {k: _quantile(ref[k] - cpu[k], 0.99) for k in ("g", "d")}
+    diffs = {k: float((card[k] - cpu[k]).abs().max()) for k in ("g", "d", "u", "stats")}
+    refs = {k: float((ref[k] - cpu[k]).abs().max()) for k in ("g", "d", "u", "stats")}
+    print(f"gan (c) step hold, full width, batch {len(x)} of {size}^2, injected masks, TF32 off, "
+          f"card vs cpu ({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): "
+          f"step-1 D loss and L1 rel diff {step1!r} (tolerance 1e-5); [G, D, L1] over 3 steps "
+          f"card {card['losses']!r} cpu {cpu['losses']!r}; D loss and L1 max rel diff {traj!r} "
+          f"(reference {traj_ref!r}; tolerance a quarter of the least step-to-step change on the "
+          f"cpu {traj_lim!r}); share of the weights within {tight} (a tenth of one Adam step) "
+          f"after step 1: card {share!r} (reference {share_ref!r}; a skipped step: {share_skip!r}; "
+          f"tolerance 0.98); after step 3: "
+          f"card {share3!r} (reference {share3_ref!r}), 99th percentile |diff| {q99!r} (reference "
+          f"{q99_ref!r}), max |diff| G {diffs['g']!r} D {diffs['d']!r} (reference G {refs['g']!r} "
+          f"D {refs['d']!r}; tolerance: Adam's bounds at betas (0.5, 0.999) {bounds}); "
+          f"spectral-norm u and sigma {diffs['u']!r} (reference {refs['u']!r}), BatchNorm "
+          f"statistics {diffs['stats']!r} (reference {refs['stats']!r}; tolerance max(1e-4, 10x "
+          f"the reference))")
+    check(step1 <= 1e-5 and all(traj[k] <= traj_lim[k] for k in traj),
+          "gan: card and cpu losses disagree")
+    check(all(share[k] >= 0.98 and diffs[k] <= bounds[k] for k in ("g", "d")),
+          "gan: card and cpu weights disagree")
+    check(all(diffs[k] <= max(1e-4, 10 * refs[k]) for k in ("u", "stats")),
+          "gan: card and cpu spectral-norm or BatchNorm statistics disagree")
+
+    # contextual attention: one forward and backward, card against cpu, in
+    # float64: the attention's softmax (scale 10) over near-equal patch
+    # similarities turns float32 rounding into differences of 1e-2 in the
+    # gradient, and two CPU thread counts do not show that spread
+    imgs = torch.from_numpy(x[..., None]).double()
+    m = masks[..., None].double()
+    runs = []
+    for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))):
+        torch.set_num_threads(threads)
+        g = _seeded(SEED, lambda: GatedGenerator(lat_channels=cfg["net"]["lat_channels"]))
+        g = g.double().to(dev).train()
+        fine, coarse = g(imgs.to(dev), m.to(dev))
+        loss = torch.mean(torch.abs(fine - imgs.to(dev)) * m.to(dev)) + torch.mean(
+            torch.abs(coarse - imgs.to(dev)) * m.to(dev))
+        loss.backward()
+        runs.append((torch.cat([fine.detach().flatten(), coarse.detach().flatten()]).cpu(),
+                     torch.cat([p.grad.flatten() for p in g.parameters()]).cpu()))
+        del g, fine, coarse, loss
+    torch.set_num_threads(n)
+    (oc, gc), (o1, g1), (o2, g2) = runs
+    out_err, out_ref = float((oc - o1).abs().max()), float((o2 - o1).abs().max())
+    scale = float(g1.abs().max())
+    grad_err, grad_ref = float((gc - g1).abs().max()) / scale, float((g2 - g1).abs().max()) / scale
+    print(f"gan (c) GatedGenerator with contextual attention, lat {cfg['net']['lat_channels']}, "
+          f"batch {len(x)} of {size}^2, train mode, float64, card vs cpu: outputs max |diff| "
+          f"{out_err!r} (reference {out_ref!r}; tolerance 1e-9), gradients max |diff| / max "
+          f"|grad| {grad_err!r} (reference {grad_ref!r}; tolerance 1e-8)")
+    check(out_err <= 1e-9 and grad_err <= 1e-8,
+          "gan: contextual-attention generator card and cpu disagree")
+
+    b = cfg["train"]["batch_size"]
+    draws = draw_ff_masks(torch.Generator().manual_seed(SEED + 1), b, (size, size), **cfg["mask"])
+    on_cpu = render_ff_masks(draws, (size, size))
+    card_draws = {k: v.to(DEV) for k, v in draws.items()}
+    on_card = render_ff_masks(card_draws, (size, size)).cpu()
+    render_ms = cuda_ms(render_ff_masks, card_draws, (size, size))
+    edges = _stroke_edges(draws, (size, size))
+    diff = (on_card != on_cpu).numpy()
+    mk = (torch.from_numpy(np.random.default_rng(SEED).uniform(size=(b, size, size))) > 0.7).float()
+    morph_eq = all(torch.equal(f(mk, k), f(mk.to(DEV), k).cpu())
+                   for f in (morph.dilation, morph.erosion, morph.opening, morph.closing)
+                   for k in (3, 5, 7))
+    dmap = torch.from_numpy(np.random.default_rng(SEED + 1).gamma(1.5, size=(size, size))
+                            .astype(np.float32))
+    hyst_eq = torch.equal(morph.hysteresis_threshold(dmap, 2.0, 4.0),
+                          morph.hysteresis_threshold(dmap.to(DEV), 2.0, 4.0).cpu())
+    print(f"gan (c) mask render {b}x{size}^2 with the config's ranges, draws from one CPU "
+          f"generator: {int(diff.sum())} pixels differ card vs cpu, all within 1e-4 of a "
+          f"stroke's edge {not (diff & ~edges).any()} ({int(edges.sum())} such pixels); mask "
+          f"share {float(on_cpu.mean())!r}; render on the card {render_ms!r} ms; dilation, "
+          f"erosion, opening, closing at 3, 5, 7 equal {morph_eq}; hysteresis equal {hyst_eq}")
+    check(not (diff & ~edges).any() and morph_eq and hyst_eq,
+          "gan: card and cpu masks or morphology disagree")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _ad_detect(cfg: dict, work: str, gan_out: str) -> None:
+    """(d) the AD CLI with (a)'s generator and phase 9's ResNet-18 gate on a
+    SegICH 2D tree, with the attention export; one slice's
+    ``robust_anomaly_detect`` and one ``detect`` timed."""
+    torch.backends.cudnn.allow_tf32 = True
+    n_pat, n_slices, side = AD_TREE
+    root = os.path.join(work, "ad_segich")
+    ds = synthetic_ich_slices(n_slices=n_pat * n_slices, size=side, n_volumes=n_pat,
+                              seed=SEED + 600)
+    write_segich_tree(ds, root)
+    gate = os.path.join(work, "out", "resnet18_triage", "resnet_classifier.bin")
+    check(os.path.exists(gate), "ad: phase 9's ResNet-18 weights are missing")
+    ad_cfg = {"exp_name": "ad_inpainting", "path": {"DATA": root, "OUTPUT": os.path.join(work, "out")},
+              "data": cfg["data"], "net": cfg["net"],
+              "ad": {"generator_path": os.path.join(gan_out, "snpatchgan.bin"),
+                     "classifier_path": gate, "gate_threshold": 0.0}}
+    fn = _write_cfg(ad_cfg, os.path.join(work, "ad.json"))
+    att = os.path.join(work, "attention")
+    edt.launches = edt.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ad_inpainting.main([fn, "--device", DEV, "--export-attention", att])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "slice_prediction_scores.csv"), newline="") as f:
+        slices = list(csv.DictReader(f))
+    with open(os.path.join(out, "volume_prediction_scores.csv"), newline="") as f:
+        vols = list(csv.DictReader(f))
+    with open(os.path.join(att, "info.csv"), newline="") as f:
+        info = list(csv.reader(f))
+    maps = [read_png_gray(os.path.join(att, r[3])) for r in info[1:]]
+    flagged = [float(r["TP"]) + float(r["FP"]) for r in slices]
+    print(f"ad (d) ad_inpainting CLI on {n_pat} patients x {n_slices} slices of {side}^2 read at "
+          f"{cfg['data']['size']}^2 (gate threshold 0, JAX defaults: holes 32x32, step 16, batch "
+          f"16, n_iter 3, angles [-15, -7.5, 7.5, 15], flip) with --export-attention: {wall!r} s "
+          f"= {wall / len(ds)!r} s a slice (the load, the gate and the exports included); "
+          f"pixels flagged per slice {flagged}; volume Dice {[r['Dice'] for r in vols]}; "
+          f"info.csv {info[0]} + {len(info) - 1} rows; EDT launches {_edt_launches()}")
+    check(len(slices) == len(ds) and len(vols) == n_pat, "ad: CSV rows")
+    check(info[0] == ["", "PatientNumber", "SliceNumber", "attention_fn"]
+          and [r[0] for r in info[1:]] == [str(i) for i in range(len(ds))], "ad: info.csv")
+    check(all(m.shape == (cfg["data"]["size"],) * 2 for m in maps), "ad: attention maps")
+
+    det = ad_inpainting.build_detector(ad_cfg, DEV)
+    calls = []
+    inpaint = det.inpaint_fn
+
+    def counted(imgs, masks):
+        calls.append(len(imgs))
+        return inpaint(imgs, masks)
+
+    det.inpaint_fn = counted
+    test = load_segich_2d(root, window=(cfg["data"]["win_center"], cfg["data"]["win_width"]),
+                          size=cfg["data"]["size"])
+    img = test.images[int(np.argmax(test.masks.reshape(len(test), -1).sum(1)))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.detect(img)
+    torch.cuda.synchronize()
+    detect_s, detect_calls = time.perf_counter() - t0, list(calls)
+    calls.clear()
+    t0 = time.perf_counter()
+    final, amap = robust_anomaly_detect(img, det)
+    torch.cuda.synchronize()
+    robust_s = time.perf_counter() - t0
+    print(f"ad (d) one slice with a lesion: detect {detect_s!r} s with {len(detect_calls)} "
+          f"generator calls (batch sizes {sorted(set(detect_calls))}, "
+          f"{sum(c == 1 for c in detect_calls)} of batch 1); robust_anomaly_detect {robust_s!r} "
+          f"s with {len(calls)} generator calls ({sum(c == 1 for c in calls)} of batch 1); "
+          f"anomaly-map share above 0 {float((amap > 0).mean())!r}, final mask share "
+          f"{float(final.mean())!r}")
+    check(final.shape == img.shape and np.isfinite(amap).all(), "ad: robust_anomaly_detect")
+
+
+OP_GROUPS_GAN = (("conv backward", ("convolution_backward",)), ("conv forward", ("conv",)),
+                 ("batch_norm", ("batch_norm",)), ("attention bmm/softmax", ("bmm", "softmax")),
+                 ("gating sigmoid/mul", ("sigmoid", "aten::mul")),
+                 ("reflect pad and upsample", ("reflection_pad", "index_select", "upsample")),
+                 ("adam", ("_foreach_",)), ("copy", ("copy_", "to_copy")))
+GAN_RANGES = ("masks", "d_step", "g_step", "edt_loss")
+
+
+def _gan_step_times(cfg: dict, normal: np.ndarray):
+    """(e) warm ms per step of each ``GAN_TIMED`` cell (TF32 on for convs
+    and matmuls), FLOPs and their rate, peak memory, the generator's
+    inference at batch 16 and 1; returns the warm (trainer, state, batch)
+    of ``gan_sa_bs16``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    images = torch.from_numpy(normal).to(DEV)
+    size = cfg["data"]["size"]
+    warm = None
+    for cell, sa, bs in GAN_TIMED:
+        t = _gan_trainer(cfg, DEV, bs, self_attention=sa)
+        state = t._train_state(max(1, len(normal) // bs))
+        t.generator.train(), t.discriminator.train()
+        plan = np.random.default_rng(SEED).integers(0, len(normal), size=(4, bs))
+        batches = [images.index_select(0, torch.as_tensor(p, device=images.device)) for p in plan]
+        ms = _ssl_warm_ms(t, state, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as fc:
+            t._train_step(state, batches[0], 99)
+        flops = fc.get_total_flops()
+        tflops = flops / ms / 1e9
+        g = t.generator.eval()
+        m = random_ff_masks(torch.Generator(device=DEV).manual_seed(SEED), bs, (size, size),
+                            **cfg["mask"])[..., None]
+        x = batches[0][..., None]
+
+        def infer(k):
+            with torch.inference_mode():
+                return g(x[:k], m[:k])
+
+        with FlopCounterMode(display=False) as fc:
+            infer(1)
+        infer_flops = fc.get_total_flops()
+        inf16, inf1 = cuda_ms(infer, bs, iters=10), cuda_ms(infer, 1, iters=10)
+        g.train()
+        print(f"{cell}: {'SAGatedGenerator' if sa else 'GatedGenerator with contextual attention'} "
+              f"lat {cfg['net']['lat_channels']} + PatchDiscriminator, batch {bs} of {size}^2, "
+              f"float32 (TF32 on for convs and matmuls): {ms!r} ms/step = {bs / ms * 1e3!r} "
+              f"slices/s; {flops / 1e12!r} TFLOP per step (FlopCounterMode: G forward without "
+              f"grad, D forward and backward twice, G forward and backward through D) = "
+              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"peak device memory {peak!r} GiB; generator inference {inf16!r} ms at batch {bs} "
+              f"({bs / inf16 * 1e3!r} slices/s), {inf1!r} ms at batch 1 ({infer_flops / 1e9!r} "
+              f"GFLOP a slice)")
+        if sa:
+            warm = (t, state, batches[0])
+        else:
+            del t, state, batches
+            torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"gan nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+def _gan_profile(t, state, batch) -> None:
+    """(e) one warm ``gan_sa_bs16`` step under torch.profiler, and the EDT
+    kernels' share of its device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._train_step(state, batch, 400)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(_profile_summary(prof, wall_ms, f"gan profile (one warm gan_sa_bs16 step, batch "
+                           f"{t.batch_size}, TF32 on)", OP_GROUPS_GAN, GAN_RANGES))
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == cuda and e.key not in GAN_RANGES]
+    total = sum(v for _, v in kernels) or 1.0
+    edt_us = sum(v for k, v in kernels if "envelope" in k or "mask_rows" in k)
+    print(f"gan profile EDT kernels: {edt_us!r} us = {100 * edt_us / total:.3f}% of the step's "
+          f"device time")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_gan(work: str, data) -> dict:
+    """Phase 10 on phase 8's RSNA tree and phase 9's ResNet-18 weights;
+    returns the EDT launches of the GAN training path (a)."""
+    cfg = load_gan_cfg(work)
+    normal = np.ascontiguousarray(data.images[np.asarray(data.labels)[:, 0] == 0])
+    check(data.images.shape[1] == cfg["data"]["size"], "gan: phase 8's slices are not the config's size")
+    out, launches, steps = _gan_train(cfg, work, normal)
+    torch.cuda.empty_cache()
+    _gan_holds(cfg, normal)
+    torch.cuda.empty_cache()
+    _ad_detect(cfg, work, out)
+    torch.cuda.empty_cache()
+    _gan_profile(*_gan_step_times(cfg, normal))
+    return launches
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -2168,10 +2688,13 @@ def main() -> None:
         data = phase_ssl(work)
         torch.cuda.empty_cache()
         phase_cls(work, data)
+        torch.cuda.empty_cache()
+        gan_launches = phase_gan(work, data)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
-        "replaces": "ich_tpu/ops/pallas_edt.py:27", "launches": main_launches[name],
+        "replaces": "ich_tpu/ops/pallas_edt.py:27", "launches": gan_launches[name],
+        "launches_by_path": {"gan_train": gan_launches[name], "edt_leg": main_launches[name]},
         **edt_rows[name], "bound_by": "bytes", "library_ms": None,
     } for name in ("edt_envelope_pass", "distance_transform_edt_kernel")]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Convert the JAX package's U-Net family and ResNet variables to port
-``state_dict``s.
+"""Convert the JAX package's U-Net family, ResNet and SN-PatchGAN variables
+to port ``state_dict``s.
 
 The inverse of ``ich_tpu.interop.torch_port``'s ``port_unet``,
 ``port_unet_encoder``, ``port_partial_unet`` and ``port_resnet``: flax
@@ -7,7 +7,10 @@ variables ``{"params": ..., "batch_stats": ...}`` of
 :class:`ich_tpu.models.UNet`, ``UNetEncoder``, ``PartialUNet`` or
 ``ResNet``, as plain numpy nests, become ``{torch key: numpy array}`` for
 their counterparts in :mod:`ich_tpu_torch.models.unet` and
-:mod:`ich_tpu_torch.models.resnet`. Layouts converted:
+:mod:`ich_tpu_torch.models.resnet`; the generators and the discriminator of
+:mod:`ich_tpu.models.inpainting` likewise for
+:mod:`ich_tpu_torch.models.inpainting` (with the discriminator's
+``spectral_stats`` as the ``u`` and ``sigma`` buffers). Layouts converted:
 
 - conv kernels: flax HWIO / DHWIO -> torch OIHW / OIDHW;
 - transposed-conv kernels: flax ``(*k, I, O)`` -> torch ``(I, O, *k)``, with
@@ -89,7 +92,6 @@ class _Emitter:
             self.conv(f"{fprefix}/conv{i}", f"{tprefix}.conv{i}")
             self.norm(f"{fprefix}/bn{i}/norm", f"{tprefix}.bn{i}")
 
-
     def encoder(self) -> None:
         enc = self.params["encoder"]
         for i in range(sum(1 for k in enc if k.startswith("down_"))):
@@ -154,4 +156,88 @@ def partial_unet_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
     head = e.params["conv_head"]
     for i in range(len(head)):
         e.conv(f"conv_head/conv{i}", f"final_conv.conv_layers.{i}")
+    return e.sd
+
+
+# -- SN-PatchGAN networks ----------------------------------------------------------
+
+
+def _flat(tree: Mapping, prefix: str = "") -> Dict[str, Array]:
+    """A nested mapping as {"a/b/c": leaf}; flax's spectral-norm keys, which
+    hold slashes themselves ("conv/kernel/u"), come out the same."""
+    out = {}
+    for k, v in (tree or {}).items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flat(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+class _GanEmitter(_Emitter):
+    def gated(self, fpath: str, tname: str) -> None:
+        """A ``GatedConv2d`` (its fused 2F conv and the feature half's
+        BatchNorm) or an ``UpsampleGatedConv2d`` (the same under ``gconv``
+        / ``gated_conv``)."""
+        if "gconv" in self._get(self.params, fpath):
+            fpath, tname = f"{fpath}/gconv", f"{tname}.gated_conv"
+        self.conv(f"{fpath}/conv", f"{tname}.conv")
+        self.norm(f"{fpath}/norm", f"{tname}.norm")
+
+    def stack(self, fprefix: str, tprefix: str) -> None:
+        for i in range(sum(1 for k in self._get(self.params, fprefix) if k.startswith("g"))):
+            self.gated(f"{fprefix}/g{i}", f"{tprefix}.{i}")
+
+    def self_attention(self, fpath: str, tname: str) -> None:
+        for name in ("conv_f", "conv_g", "conv_h"):
+            self.conv(f"{fpath}/{name}", f"{tname}.{name}")
+        self.sd[f"{tname}.gamma"] = np.asarray(self._get(self.params, fpath)["gamma"])
+
+
+def gated_generator_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``GatedGenerator`` variables (``params``, ``batch_stats``) -> port
+    ``GatedGenerator`` ``state_dict``; the contextual branch is converted
+    when the variables hold it."""
+    e = _GanEmitter(variables)
+    e.stack("coarse", "coarse")
+    e.stack("refine_enc", "refine_enc")
+    if "refine_attn_cnn1" in e.params:
+        e.stack("refine_attn_cnn1", "refine_attention_enc.cnn1")
+        e.stack("refine_attn_cnn2", "refine_attention_enc.cnn2")
+    e.stack("refine_dec", "refine_dec")
+    return e.sd
+
+
+def sa_gated_generator_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``SAGatedGenerator`` variables -> port ``SAGatedGenerator``
+    ``state_dict`` (the attention under ``refine_attention.0``)."""
+    e = _GanEmitter(variables)
+    e.stack("coarse", "coarse")
+    e.stack("refine_enc", "refine_enc")
+    e.self_attention("self_attention", "refine_attention.0")
+    e.stack("refine_dec", "refine_dec")
+    return e.sd
+
+
+def patch_discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``PatchDiscriminator`` variables (``params``, ``batch_stats``,
+    ``spectral_stats``) -> port ``PatchDiscriminator`` ``state_dict``, each
+    spectral-norm layer's ``u`` and ``sigma`` included. With
+    self-attention the last conv sits at ``layer_list.{n + 1}``, after the
+    attention and its ReLU."""
+    e = _GanEmitter(variables)
+    n = sum(1 for k in e.params if k.startswith("conv"))
+    attn = "self_attention" in e.params
+    spectral = _flat(variables.get("spectral_stats") or {})
+    for i in range(n):
+        t = f"layer_list.{i + 2 if attn and i == n - 1 else i}"
+        e.conv(f"conv{i}/conv", f"{t}.conv")
+        e.norm(f"conv{i}/norm", f"{t}.norm")
+        for name in ("u", "sigma"):
+            key = f"conv{i}/SpectralNorm_0/conv/kernel/{name}"
+            if key in spectral:
+                e.sd[f"{t}.{name}"] = spectral[key]
+    if attn:
+        e.self_attention("self_attention", f"layer_list.{n - 1}")
     return e.sd

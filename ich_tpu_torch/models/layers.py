@@ -133,6 +133,23 @@ def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) ->
     return out
 
 
+@contextlib.contextmanager
+def stats_frozen(net: nn.Module):
+    """Inside the block, the train-mode normalisations under ``net`` (every
+    module with an ``update_stats`` flag: BatchNorm, spectral norm) compute
+    as usual but store no statistics: BatchNorm's running-average update
+    goes to copies. A checkpointed call's recompute and the SN-PatchGAN's D
+    step run the forward a second time under it."""
+    mods = [m for m in net.modules() if hasattr(m, "update_stats")]
+    for m in mods:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.update_stats  # back to the class's True
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     update_stats = True
     forward = _batch_norm_forward
@@ -233,7 +250,6 @@ class ConvBlock(nn.Module):
     def _remat_contexts(self):
         """The (forward, recompute) contexts of one checkpointed call."""
         gen = getattr(self.dropout, "generator", None)
-        norms = [n for n in (self.bn1, self.bn2) if hasattr(n, "update_stats")]
         saved = {}
 
         @contextlib.contextmanager
@@ -247,13 +263,10 @@ class ConvBlock(nn.Module):
             if gen is not None:
                 after = gen.get_state()
                 gen.set_state(saved["gen"])
-            for n in norms:
-                n.update_stats = False
             try:
-                yield
+                with stats_frozen(self):
+                    yield
             finally:
-                for n in norms:
-                    del n.update_stats  # back to the class's True
                 if gen is not None:
                     gen.set_state(after)
 

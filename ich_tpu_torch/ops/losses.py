@@ -5,7 +5,8 @@ Ported: the segmentation losses (``binary_dice_loss``, ``tversky_loss``,
 contrastive losses of SSL pretraining (``info_nce_loss``,
 ``local_info_nce_loss`` with ``sample_region_cells``) and the
 reconstruction losses (``mse_loss``, ``l1_loss``) and the classifier
-losses (``softmax_cross_entropy``, ``weighted_bce_with_logits``). Layout is NHWC, as in
+losses (``softmax_cross_entropy``, ``weighted_bce_with_logits``) and the
+SN-PatchGAN's hinge losses (``hinge_d_loss``, ``hinge_g_loss``). Layout is NHWC, as in
 the JAX package, and every loss computes in float32. The ``LOSSES``
 registry carries them under the reference's class names.
 """
@@ -223,6 +224,18 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     w = torch.as_tensor(class_weights, dtype=torch.float32, device=nll.device)[labels]
     return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+
+
+def hinge_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor) -> torch.Tensor:
+    """SN-PatchGAN discriminator hinge loss (reference ``SNPatchGAN.py:168``):
+    mean(relu(1 - D(real))) + mean(relu(1 + D(fake)))."""
+    return (torch.mean(F.relu(1.0 - d_real.to(torch.float32)))
+            + torch.mean(F.relu(1.0 + d_fake.to(torch.float32))))
+
+
+def hinge_g_loss(d_fake: torch.Tensor) -> torch.Tensor:
+    """Generator hinge term: -mean(D(fake)) (reference ``SNPatchGAN.py:185``)."""
+    return -torch.mean(d_fake.to(torch.float32))
 
 
 def _factory(fn: Callable, **defaults) -> Callable:

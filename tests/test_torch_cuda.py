@@ -465,3 +465,111 @@ def test_resnet_card_matches_cpu(card):
     for k, v in net.state_dict().items():
         if "running" in k:
             torch.testing.assert_close(gpu.state_dict()[k].cpu(), v, rtol=1e-4, atol=1e-6)
+
+
+def _gan_pair():
+    from ich_tpu_torch.models.inpainting import PatchDiscriminator, SAGatedGenerator
+    from ich_tpu_torch.train.gan import SNPatchGAN
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        g = SAGatedGenerator(lat_channels=4)
+        d = PatchDiscriminator(out_channels=(8, 16, 16), kernel_size=3)
+        out.append(SNPatchGAN(g, d, batch_size=4, lr_g=1e-5, lr_d=1e-5, device=dev))
+    return out
+
+
+def test_gan_step_card_matches_cpu(card):
+    """One SN-PatchGAN step (SAGatedGenerator lat 4, SN discriminator 8-16-16
+    with self-attention, batch 4 of 32^2, injected masks, lr 1e-5 so that
+    Adam's sign flips on rounding-noise gradients stay below the loss's
+    tolerance): G, D and L1 losses within rtol 1e-4, the spectral-norm u
+    within 1e-5, every weight within Adam's bound and 99% within 1e-6; the
+    two DiscountedL1 terms launch each EDT kernel twice."""
+    from ich_tpu_torch.ops.masks import random_ff_masks
+
+    images = torch.from_numpy(np.random.default_rng(0).uniform(size=(4, 32, 32)).astype(np.float32))
+    masks = random_ff_masks(torch.Generator().manual_seed(1), 4, (32, 32), n_draw=(1, 3),
+                            vertex=(2, 5), brush_width=(4, 8), length=(4, 10))
+    runs = []
+    for t in _gan_pair():
+        state = t._train_state(1)
+        t.generator.train(), t.discriminator.train()
+        launches = (edt.launches, edt.mask_launches)
+        losses = [float(v) for v in t._step(state, images.to(t.device), None,
+                                            masks=masks.to(t.device))]
+        moved = (edt.launches - launches[0], edt.mask_launches - launches[1])
+        runs.append((losses, {k: v.detach().cpu() for k, v in
+                              {**t.generator.state_dict(), **{f"d.{k}": v for k, v in
+                               t.discriminator.state_dict().items()}}.items()}, moved))
+    (lc, sc, _), (lg, sg, moved) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert moved == (2, 2)
+    d = torch.cat([(sc[k] - sg[k]).abs().flatten() for k in sc
+                   if sc[k].is_floating_point() and not k.endswith((".u", ".sigma"))
+                   and "running" not in k])
+    assert float(d.max()) <= 2 * 1.005 * 1e-5 and float((d <= 1e-6).float().mean()) >= 0.99
+    for k in sc:
+        if k.endswith((".u", ".sigma")):
+            assert float((sc[k] - sg[k]).abs().max()) <= 1e-5, k
+
+
+def test_sn_conv_card_matches_cpu(card):
+    """flax's spectral norm on the card: output, u and sigma after a train
+    call; eval leaves u as it is."""
+    from ich_tpu_torch.models.inpainting import SNConv2d
+
+    torch.manual_seed(2)
+    cpu = SNConv2d(6, 32, 5, stride=2, padding=2).train()
+    gpu = SNConv2d(6, 32, 5, stride=2, padding=2).cuda().train()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, 6, 40, 40)
+    with torch.no_grad():
+        a, b = cpu(x), gpu(x.cuda()).cpu()
+    assert float((a - b).abs().max()) <= 1e-5
+    for name in ("u", "sigma"):
+        assert float((getattr(cpu, name) - getattr(gpu, name).cpu()).abs().max()) <= 1e-6
+    gpu.eval()
+    u = gpu.u.clone()
+    with torch.no_grad():
+        gpu(x.cuda())
+    assert torch.equal(gpu.u, u)
+
+
+def test_detector_device_ops_card_match_cpu(card):
+    """The detector's device work on the card against the CPU: morphology
+    and hysteresis equal, the free-form mask render equal (draws from one
+    CPU generator), and detect() with an oracle inpainter equal."""
+    from ich_tpu_torch.ops import morphology as morph
+    from ich_tpu_torch.ops.masks import draw_ff_masks, render_ff_masks
+    from ich_tpu_torch.train.inpaint_ad import InpaintAnomalyDetector
+
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy((rng.uniform(size=(3, 64, 48)) > 0.6).astype(np.float32))
+    for name in ("dilation", "erosion", "opening", "closing"):
+        for size in (3, 5, 7):
+            f = getattr(morph, name)
+            assert torch.equal(f(m, size), f(m.cuda(), size).cpu()), (name, size)
+    x = torch.from_numpy(rng.gamma(1.5, size=(128, 128)).astype(np.float32))
+    assert torch.equal(morph.hysteresis_threshold(x, 1.0, 3.0),
+                       morph.hysteresis_threshold(x.cuda(), 1.0, 3.0).cpu())
+    draws = draw_ff_masks(torch.Generator().manual_seed(4), 8, (256, 256))
+    cpu = render_ff_masks(draws, (256, 256))
+    gpu = render_ff_masks({k: v.cuda() for k, v in draws.items()}, (256, 256)).cpu()
+    assert float((cpu != gpu).float().mean()) <= 1e-4  # only stroke-edge pixels may differ
+
+    clean = rng.uniform(0.2, 0.4, size=(64, 64)).astype(np.float32)
+    image = clean.copy()
+    image[20:34, 24:40] = 0.95
+    field = rng.normal(size=(64, 64)).astype(np.float32)
+
+    def oracle(imgs, masks):
+        w = (np.asarray(masks).reshape(len(masks), -1).sum(1) % 13 / 13.0)[:, None, None, None]
+        return imgs * (1 - masks) + (clean + 0.02 * w[..., 0] * field)[..., None] * masks
+
+    kw = dict(grid_hole=(16, 16), grid_step=8, batch_size=8, n_iter=2,
+              grid_anomaly_inpaint=((32, 32), (32, 32)))
+    a = InpaintAnomalyDetector(oracle, device="cpu", **kw).detect(image)
+    b = InpaintAnomalyDetector(oracle, device="cuda", **kw).detect(image)
+    assert np.array_equal(a, b) and a[22:32, 26:38].all()

@@ -2,7 +2,10 @@
 module of ich_tpu_torch and chip_smoke.py's module-level imports load, and
 none of them imports pandas, PIL or scikit-learn. With those three blocked
 as well, the SegICH 2D CSV path runs: the supervised2d CLI takes a
-port-written tree to its aggregates on the CPU."""
+port-written tree to its aggregates on the CPU; and the SN-PatchGAN CLI
+trains a tiny generator on a port-written RSNA tree, whose weights the
+inpainting-AD CLI then runs (with a ResNet-18 gate) on a SegICH tree, its
+attention export included."""
 
 import os
 import subprocess
@@ -31,7 +34,12 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.experiments.brain_extraction",
                  "ich_tpu_torch.experiments.pred_on_brain",
                  "ich_tpu_torch.experiments.segment_brain",
-                 "ich_tpu_torch.postprocessing.update_pred"):
+                 "ich_tpu_torch.postprocessing.update_pred",
+                 "ich_tpu_torch.ops.masks", "ich_tpu_torch.ops.morphology",
+                 "ich_tpu_torch.models.inpainting", "ich_tpu_torch.train.gan",
+                 "ich_tpu_torch.train.inpaint_ad", "ich_tpu_torch.data.png",
+                 "ich_tpu_torch.experiments.inpainting_gan",
+                 "ich_tpu_torch.experiments.ad_inpainting"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()
@@ -84,3 +92,67 @@ def test_segich_csv_path_runs_without_pandas_pil_or_sklearn(tmp_path):
         assert (tmp_path / "out" / "exp" / f"Fold_{k}" / "pred" /
                 "volume_prediction_scores.csv").exists()
     assert (tmp_path / "out" / "exp" / "all_volume_prediction.csv").exists()
+
+
+GAN_AD_PROBE = textwrap.dedent("""
+    import json, os, sys
+    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "pandas", "PIL", "sklearn"):
+        sys.modules[name] = None  # any import of these now raises ImportError
+    import torch
+    from ich_tpu_torch.data.datasets import write_rsna_slice_info
+    from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
+    from ich_tpu_torch.experiments import ad_inpainting, inpainting_gan
+    from ich_tpu_torch.models.resnet import resnet18
+    from ich_tpu_torch.train.checkpoint import save_params
+    work = sys.argv[1]
+    rsna = os.path.join(work, "rsna", "stage_2_train")
+    label_csv = write_rsna_tree(os.path.join(work, "rsna"), n_slices=16, size=48, seed=3)
+    write_rsna_slice_info(label_csv, os.path.join(rsna, "slice_info.csv"))
+    with open("configs/inpainting_gan.json") as f:
+        cfg = json.load(f)
+    cfg["path"] = {"RSNA_DATA": rsna, "OUTPUT": os.path.join(work, "out")}
+    cfg["data"]["size"] = 32
+    cfg["net"].update(lat_channels=4, disc_channels=[8, 16, 16])
+    cfg["mask"].update(brush_width=[3, 6], length=[3, 8])
+    cfg["train"].update(n_epoch=5, batch_size=4, checkpoint_freq=1)  # validation at epoch 5
+    with open(os.path.join(work, "gan.json"), "w") as f:
+        json.dump(cfg, f)
+    gan_dir = inpainting_gan.main([os.path.join(work, "gan.json"), "--device", "cpu"])
+
+    write_segich_tree(synthetic_ich_slices(n_slices=4, size=40, n_volumes=2, seed=5),
+                      os.path.join(work, "segich"))
+    torch.manual_seed(0)
+    save_params(os.path.join(work, "gate.bin"), resnet18(num_classes=2).state_dict())
+    cfg["exp_name"] = "ad"
+    cfg["path"] = {"DATA": os.path.join(work, "segich"), "OUTPUT": os.path.join(work, "out")}
+    cfg["ad"] = {"generator_path": os.path.join(gan_dir, "snpatchgan.bin"),
+                 "classifier_path": os.path.join(work, "gate.bin"), "gate_threshold": 0.0,
+                 "grid_hole": [8, 8], "grid_step": 8, "batch_size": 4, "n_iter": 1,
+                 "angles": [7.5]}
+    with open(os.path.join(work, "ad.json"), "w") as f:
+        json.dump(cfg, f)
+    ad_inpainting.main([os.path.join(work, "ad.json"), "--device", "cpu",
+                        "--export-attention", os.path.join(work, "att")])
+    loaded = [m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in
+              ("jax", "ich_tpu", "pandas", "PIL", "sklearn")]
+    assert not loaded, loaded
+    print(gan_dir)
+""")
+
+
+def test_gan_and_ad_clis_run_without_jax_pandas_pil_or_sklearn(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", GAN_AD_PROBE, str(tmp_path)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    gan_dir = r.stdout.splitlines()[-1]
+    for name in ("checkpoint.bin", "snpatchgan.bin", "outputs.json", "valid/valid_ep5_0.png"):
+        assert os.path.exists(os.path.join(gan_dir, name)), name
+    ad_dir = tmp_path / "out" / "ad"
+    for name in ("slice_prediction_scores.csv", "volume_prediction_scores.csv"):
+        assert (ad_dir / name).exists(), name
+    with open(tmp_path / "att" / "info.csv") as f:
+        rows = f.read().splitlines()
+    assert rows[0] == ",PatientNumber,SliceNumber,attention_fn" and len(rows) == 5
+    assert rows[1].split(",")[0] == "0" and rows[1].endswith("_attention.png")
+    assert all((tmp_path / "att" / r.split(",")[3]).exists() for r in rows[1:])
