@@ -155,10 +155,36 @@ its last line:
    (``GatedGenerator`` with contextual attention): warm step times,
    slices/s, FLOPs and their rate, peak memory, the generator's inference
    at batch 16 and 1, and a profile of one warm ``gan_sa_bs16`` step
-   (ranges ``masks``, ``d_step``, ``g_step``, ``edt_loss``).
+   (ranges ``masks``, ``d_step``, ``g_step``, ``edt_loss``);
+11. the anomaly-detection suite, in phase 8-10's work dir: (a) ``python -m
+   ich_tpu_torch.experiments.ae_ad`` on phase 8's non-ICH slices with an
+   AE config written there (``AENet``'s defaults: latent 64, bottleneck 64,
+   n_conv 3, kernel 5, transposed-conv decoder; ``configs/fcdd.json``'s
+   batch 32 and lr 1e-4; ``AE_EPOCHS`` epochs with lambda_GDL {0: 0, 1: 1},
+   the loss jumping at the switch), its artifacts, and ``AE.validate`` of
+   the saved model (the CLI validates every 5 epochs); (b) ``ae_ad
+   --detect`` on phase 9's SegICH 2D tree (CSVs, Dice, the pixel AUC of
+   the slices with a lesion); (c) ``python -m
+   ich_tpu_torch.experiments.fcdd`` with ``configs/fcdd.json`` at its width
+   for ``FCDD_EPOCHS`` epochs (60), the AUC each epoch and the localization
+   PNGs, then ``--eval-volumes`` on phase 9's tree; (d) the attention tree
+   (the AE maps of (b) written as ``ad_inpainting --export-attention``
+   writes them, their ``info.csv`` merged into the tree's by patient and
+   slice) and ``python -m ich_tpu_torch.experiments.attention_unet2d``
+   with ``configs/unet2d.json`` gated on 2 channels, ``ATTN_SPLIT`` folds and
+   epochs, each fold's artifacts; (e) card against CPU with TF32 off: three
+   full-width steps at batch 2 of the AE (lambda 1), FCDD (injected
+   ellipses) and the gated U-Net, held as phase 10 (c) holds the GAN, the
+   ellipse render (equal but at edge pixels), the receptive upsample and
+   ``grad_heatmap`` (in float64; float32 printed); (f) ``ae_bs32``,
+   ``fcdd_bs32`` and ``attn_unet2d_bs16``: warm step times with TF32,
+   slices/s, FLOPs and their rate, peak memory, FCDD's heatmap ms per batch,
+   and a profile of one ``ae_bs32`` step naming the transposed convs'
+   backward kernels.
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training, SSL and phase 9 paths must read 0). The line
+read just after (the training, SSL, phase 9 and phase 11 paths must read
+0). The line
 before the last is a JSON object with each EDT kernel's launches on the
 path that owns it (the GAN training of phase 10 (a)), its launches by path
 (phase 4's EDT leg too), its error against the plain version, both times
@@ -193,7 +219,7 @@ from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
 from ich_tpu_torch.data.png import read_png_gray
 from ich_tpu_torch.data.segich import load_segich_2d
-from ich_tpu_torch.experiments import ad_inpainting, inpainting_gan
+from ich_tpu_torch.experiments import ad_inpainting, ae_ad, attention_unet2d, fcdd, inpainting_gan
 from ich_tpu_torch.experiments import binary_resnet, brain_extraction, pred_on_brain, segment_brain
 from ich_tpu_torch.experiments import supervised2d
 from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
@@ -220,13 +246,21 @@ from ich_tpu_torch.experiments.supervised3d import (
     split_test,
 )
 from ich_tpu_torch.kernels import _build
+from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG, receptive_upsample
 from ich_tpu_torch.models.inpainting import GatedGenerator, PatchDiscriminator, SAGatedGenerator
 from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
 from ich_tpu_torch.ops import losses as losses_mod
 from ich_tpu_torch.ops import morphology as morph
-from ich_tpu_torch.ops.masks import draw_ff_masks, random_ff_masks, render_ff_masks
+from ich_tpu_torch.ops.masks import (
+    draw_ellipse_params,
+    draw_ellipses_batch,
+    draw_ff_masks,
+    random_ff_masks,
+    render_ellipses,
+    render_ff_masks,
+)
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops.transforms import build_pipeline
 from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmentation
@@ -2206,7 +2240,7 @@ def load_gan_cfg(work: str) -> dict:
     return cfg
 
 
-def _gan_history(out: str) -> list:
+def _train_history(out: str) -> list:
     with open(os.path.join(out, "outputs.json")) as f:
         return json.load(f)["train"]["evolution"]
 
@@ -2229,7 +2263,7 @@ def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
     steps = spe * GAN_EPOCHS
     for name in ("checkpoint.bin", "snpatchgan.bin", "outputs.json"):
         check(os.path.exists(os.path.join(out, name)), f"gan: no {name}")
-    hist = _gan_history(out)
+    hist = _train_history(out)
     # the CLI validates every 5 epochs: validate the saved generator instead
     gan = inpainting_gan.build_gan(cfg, DEV)
     gan.load_model(os.path.join(out, "snpatchgan.bin"))
@@ -2263,7 +2297,7 @@ def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
     inpainting_gan.main([fn, "--device", DEV])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    hist2, more = _gan_history(out), _edt_launches()
+    hist2, more = _train_history(out), _edt_launches()
     print(f"gan (b) resumed to {GAN_EPOCHS + 1} epochs in {wall!r} s: [epoch, G, D, L1] "
           f"{hist2!r}; EDT launches {more}")
     check(len(hist2) == GAN_EPOCHS + 1 and hist2[:GAN_EPOCHS] == hist,
@@ -2667,6 +2701,520 @@ def phase_gan(work: str, data) -> dict:
     return launches
 
 
+# -- phase 11: the AE, FCDD and the attention U-Net -----------------------------------
+
+AE_EPOCHS = 2  # the repo states no epoch count for the AE
+AE_LAMBDA_GDL = {"0": 0.0, "1": 1.0}  # both branches of the AE step run
+FCDD_CFG = "configs/fcdd.json"
+FCDD_EPOCHS = 2  # the config: 60
+ATTN_SPLIT = (2, 1)  # the attention U-Net's folds and epochs (configs/unet2d.json: 10, 100)
+AD_HOLD_BATCH = 2  # the card/CPU holds (the CPU's step time)
+AD_TIMED = (("ae_bs32", "ae", 32), ("fcdd_bs32", "fcdd", 32), ("attn_unet2d_bs16", "attn", 16))
+AD_CELLS = {"ae": "AENet defaults (transposed-conv decoder), lambda_GDL 1",
+            "fcdd": f"FCDD_CNN_VGG ({FCDD_CFG}, its ellipses drawn each step)",
+            "attn": "gated U-Net (configs/unet2d.json) on 2 channels with its augmentation"}
+
+
+def load_ad_cfgs(work: str) -> dict:
+    """Three configs reading phase 8's RSNA tree and phase 9's SegICH 2D tree
+    under ``work`` and writing under ``work/out``: the AE's (``AENet``'s
+    defaults, the reference ``AE_net``'s; ``configs/fcdd.json``'s data,
+    batch and lr; ``AE_EPOCHS`` epochs with ``AE_LAMBDA_GDL``),
+    ``configs/fcdd.json`` (its width as it is) cut to ``FCDD_EPOCHS``
+    epochs, and ``configs/unet2d.json`` cut to ``ATTN_SPLIT``."""
+    paths = {"RSNA_DATA": os.path.join(work, "rsna", "stage_2_train"),
+             "DATA": os.path.join(work, "segich2d"), "OUTPUT": os.path.join(work, "out")}
+    with open(FCDD_CFG) as f:
+        fc = json.load(f)
+    fc["path"] = dict(paths)
+    fc["train"]["n_epoch"] = FCDD_EPOCHS
+    fc["ad"]["model_path"] = os.path.join(paths["OUTPUT"], fc["exp_name"], "fcdd.bin")
+    ae = {"exp_name": "AE", "seed": fc["seed"], "path": dict(paths), "data": dict(fc["data"]),
+          "net": {"latent_channels": 64, "bottelneck_channels": 64, "n_conv": 3,
+                  "bilinear": False, "kernel_size": 5},
+          "train": {"n_epoch": AE_EPOCHS, "batch_size": fc["train"]["batch_size"],
+                    "lr": fc["train"]["lr"], "lambda_GDL": dict(AE_LAMBDA_GDL)},
+          "ad": {"model_path": os.path.join(paths["OUTPUT"], "AE", "ae.bin"), "alpha": 1.5}}
+    with open(TRAIN_CFG) as f:
+        un = json.load(f)
+    un["exp_name"] = "attention_unet2d"
+    un["path"] = {"DATA": paths["DATA"], "OUTPUT": paths["OUTPUT"]}
+    un["split"]["n_fold"], un["train"]["n_epoch"] = ATTN_SPLIT
+    return {"ae": ae, "fcdd": fc, "unet": un}
+
+
+def _read_rows(path: str) -> list:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _scores(out: str, n_slices: int, n_vols: int) -> tuple:
+    """The volume Dice and the pixel AUCs of the slices with a lesion from a
+    detector's two CSVs, their row counts checked."""
+    slices = _read_rows(os.path.join(out, "slice_prediction_scores.csv"))
+    vols = _read_rows(os.path.join(out, "volume_prediction_scores.csv"))
+    check(len(slices) == n_slices and len(vols) == n_vols,
+          f"ad: {len(slices)} slice and {len(vols)} volume rows in {out}")
+    auc = [float(r["pixel_AUC"]) for r in slices if r["label"] == "1"]
+    dice = [float(r["Dice"]) for r in vols]
+    check(auc and np.isfinite(auc).all() and np.isfinite(dice).all(),
+          f"ad: pixel AUC {auc} or Dice {dice} not finite in {out}")
+    return dice, auc
+
+
+def _ad_ae(cfg: dict, work: str, normal: np.ndarray, n_tree: tuple) -> None:
+    """(a) the AE CLI on the non-ICH slices and the saved model's
+    validation, (b) ``--detect`` on phase 9's tree."""
+    fn = _write_cfg(cfg, os.path.join(work, "ae.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ae_ad.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("checkpoint.bin", "ae.bin", "outputs.json"):
+        check(os.path.exists(os.path.join(out, name)), f"ae: no {name}")
+    hist = _train_history(out)
+    # the CLI validates every 5 epochs: validate the saved model instead
+    ae = ae_ad.build_ae(cfg, DEV)
+    ae.load_model(os.path.join(out, "ae.bin"))
+    valid_dir = os.path.join(work, "ae_valid")
+    l1 = ae.validate(LabeledSliceDataset(normal, np.zeros(len(normal))), save_path=valid_dir,
+                     epoch=AE_EPOCHS)
+    pngs = [read_png_gray(os.path.join(valid_dir, f"rec_ep{AE_EPOCHS}_{i}.png"))
+            for i in range(8)]
+    del ae
+    n, tr, size = cfg["net"], cfg["train"], cfg["data"]["size"]
+    print(f"ad (a) ae_ad CLI (AENet latent {n['latent_channels']}, bottleneck "
+          f"{n['bottelneck_channels']}, n_conv {n['n_conv']}, kernel {n['kernel_size']}, "
+          f"transposed-conv decoder; batch {tr['batch_size']} of {size}^2, lr {tr['lr']}, "
+          f"lambda_GDL {tr['lambda_GDL']}): {len(normal)} non-ICH slices, {AE_EPOCHS} epochs x "
+          f"{len(normal) // tr['batch_size']} steps in {wall!r} s (RSNA load included); [epoch, "
+          f"loss] {hist!r}; the saved model's validation L1 {l1!r}, {len(pngs)} PNGs of "
+          f"{pngs[0].shape}")
+    check(len(hist) == AE_EPOCHS and np.isfinite([r[1] for r in hist]).all(),
+          f"ae: losses {hist}")
+    check(hist[1][1] > 10 * hist[0][1], f"ae: no GDL jump at the lambda switch {hist}")
+    check(np.isfinite(l1) and all(p.shape == (size, 2 * size) for p in pngs),
+          f"ae: validation {l1} {pngs[0].shape}")
+
+    fn = _write_cfg(cfg, os.path.join(work, "ae_detect.json"))
+    t0 = time.perf_counter()
+    out = ae_ad.main([fn, "--detect", "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dice, auc = _scores(out, *n_tree)
+    print(f"ad (b) ae_ad --detect on phase 9's tree ({n_tree[0]} slices of "
+          f"{SEGICH2D_TREE[2]}^2 read at {size}^2, alpha {cfg['ad']['alpha']}) in {wall!r} s: "
+          f"volume Dice mean {float(np.mean(dice))!r}, pixel AUC on the {len(auc)} slices with a "
+          f"lesion mean {float(np.mean(auc))!r}")
+
+
+def _ad_fcdd(cfg: dict, work: str, n_tree: tuple) -> None:
+    """(c) the FCDD CLI, then ``--eval-volumes`` on phase 9's tree."""
+    fn = _write_cfg(cfg, os.path.join(work, "fcdd.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fcdd.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("checkpoint.bin", "fcdd.bin", "outputs.json"):
+        check(os.path.exists(os.path.join(out, name)), f"fcdd: no {name}")
+    hist = _train_history(out)
+    size = cfg["data"]["size"]
+    pngs = [read_png_gray(os.path.join(out, "localization", f"anomaly_{i}.png"))
+            for i in range(8)]
+    tr = cfg["train"]
+    print(f"ad (c) fcdd CLI ({FCDD_CFG}: FCDD_CNN_VGG, batch {tr['batch_size']} of {size}^2, lr "
+          f"{tr['lr']}, ellipses {cfg['anomaly']['drawing_params']} with proba "
+          f"{cfg['anomaly']['proba']}, gauss_std {cfg['anomaly']['gauss_std']}) for "
+          f"{FCDD_EPOCHS} epochs in {wall!r} s (RSNA load, the AUC each epoch, the heatmap range "
+          f"and the localization PNGs included); [epoch, loss, AUC] {hist!r}; {len(pngs)} PNGs "
+          f"of {pngs[0].shape}")
+    check(len(hist) == FCDD_EPOCHS and all(np.isfinite(r[1]) and 0 <= r[2] <= 1 for r in hist),
+          f"fcdd: losses or AUCs {hist}")
+    check(all(p.shape == (size, 2 * size) for p in pngs), "fcdd: localization PNGs")
+    t0 = time.perf_counter()
+    out = fcdd.main([fn, "--eval-volumes", "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dice, auc = _scores(out, *n_tree)
+    print(f"ad (c) fcdd --eval-volumes on phase 9's tree (threshold {cfg['ad']['threshold']}) in "
+          f"{wall!r} s: volume Dice mean {float(np.mean(dice))!r}, pixel AUC on the {len(auc)} "
+          f"slices with a lesion mean {float(np.mean(auc))!r}")
+
+
+def merge_attention_info(data_dir: str, export_dir: str) -> None:
+    """``data_dir/info.csv``: the rows of ``ct_info.csv`` with the export's
+    ``attention_fn`` (made relative to ``data_dir``) merged in by
+    (PatientNumber, SliceNumber), the step that the reference's
+    ``update_publicDataset.py`` does between the export and the attention
+    U-Net."""
+    rel = os.path.relpath(export_dir, data_dir)
+    att = {(r["PatientNumber"], r["SliceNumber"]): os.path.join(rel, r["attention_fn"])
+           for r in _read_rows(os.path.join(export_dir, "info.csv"))}
+    with open(os.path.join(data_dir, "ct_info.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    with open(os.path.join(data_dir, "info.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(rows[0] + ["attention_fn"])
+        w.writerows(r + [att[(r[1], r[2])]] for r in rows[1:])
+
+
+def _ad_attention(cfgs: dict, work: str) -> np.ndarray:
+    """(d) the attention tree (the AE maps of (b) exported as
+    ``ad_inpainting --export-attention`` writes them, merged into phase 9's
+    tree) and the attention U-Net CLI on it; returns the tree's two-channel
+    images (slice, exported map)."""
+    ae_cfg, un = cfgs["ae"], cfgs["unet"]
+    tree = un["path"]["DATA"]
+    ae = ae_ad.build_ae(ae_cfg, DEV)
+    ae.load_model(ae_cfg["ad"]["model_path"])
+    win = (ae_cfg["data"]["win_center"], ae_cfg["data"]["win_width"])
+    test = load_segich_2d(tree, window=win, size=ae_cfg["data"]["size"])
+    amaps = ae.anomaly_map(test.images)
+    del ae
+    export = os.path.join(tree, "attention")
+    ad_inpainting.write_attention_info(export, [
+        (int(v), int(s), ad_inpainting.save_attention_map(export, int(v), int(s), m))
+        for v, s, m in zip(test.vol_ids, test.slice_nbrs, amaps)])
+    merge_attention_info(tree, export)
+    fn = _write_cfg(un, os.path.join(work, "attention_unet2d.json"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = attention_unet2d.main([fn, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tested = []
+    for k in range(un["split"]["n_fold"]):
+        fold = os.path.join(out, f"Fold_{k + 1}")
+        for name in ("outputs.json", "trained_unet.bin", "log.txt",
+                     "pred/slice_prediction_scores.csv", "pred/volume_prediction_scores.csv"):
+            check(os.path.exists(os.path.join(fold, name)), f"attention fold {k + 1}: no {name}")
+        tested += [int(r["volID"]) for r in
+                   _read_rows(os.path.join(fold, "pred/volume_prediction_scores.csv"))]
+        conv1 = torch.load(os.path.join(fold, "trained_unet.bin"),
+                           weights_only=True)["down_block.0.conv1.weight"]
+        mid = un["net"]["top_filter"] // un["net"]["midchannels_factor"]
+        check(tuple(conv1.shape[:2]) == (2 * mid, 2),  # features and gate, on 2 channels
+              f"attention fold {k + 1}: first conv {tuple(conv1.shape)}")
+    with open(os.path.join(out, "config.json")) as f:
+        net = json.load(f)["net"]
+    with open(os.path.join(out, "average_scores.txt")) as f:
+        avg = f.read().strip().replace("\n", "; ")
+    print(f"ad (d) attention tree: {len(amaps)} AE maps exported (max {float(amaps.max())!r}) "
+          f"and merged into info.csv; attention_unet2d CLI ({TRAIN_CFG} gated on 2 channels, "
+          f"{un['split']['n_fold']} folds x {un['train']['n_epoch']} epoch) in {wall!r} s: {avg}; "
+          f"first conv {tuple(conv1.shape)}")
+    check(net.get("gated") is True and net.get("in_channels") == 2, f"attention: net {net}")
+    check(sorted(tested) == list(range(SEGICH2D_TREE[0])), f"attention: tested volumes {tested}")
+    return np.stack([test.images, np.clip(amaps, 0, 1)], axis=-1), test.masks
+
+
+def _ad_trainer(kind: str, cfgs: dict, device, batch: int, hold: bool = False):
+    """A full-width trainer of ``kind`` from seeded weights: the AE at lambda
+    1, FCDD, or the gated U-Net on two channels (with the config's
+    augmentation and dropout, or with neither for a ``hold``)."""
+    if kind == "attn":
+        un = cfgs["unet"]
+        aug = None if hold else build_pipeline(un["data"]["augmentation"]["train"])
+        net = {"gated": True, "in_channels": 2, **({"p_dropout": 0.0} if hold else {})}
+        return _trainer(un, device, net=net, batch_size=batch, augment_fn=aug)
+    cfg = {**cfgs[kind], "train": {**cfgs[kind]["train"], "batch_size": batch}}
+    if kind == "fcdd":
+        return fcdd.build_fcdd(cfg, device)
+    t = ae_ad.build_ae(cfg, device)
+    t.lambda_gdl = 1.0
+    return t
+
+
+def _net_of(t) -> torch.nn.Module:
+    return t.unet if isinstance(t, UNet2D) else t.net
+
+
+def _ad_inputs(kind: str, cfgs: dict, images: np.ndarray, masks: np.ndarray) -> list:
+    """The hold's batch of ``kind``: the images (and the masks, or the
+    labels, one ellipse image each with the config's drawing params and the
+    uniforms that corrupt the first slice but not the second)."""
+    b, size = len(images), images.shape[1]
+    if kind == "ae":
+        return [torch.from_numpy(images[..., 0])]
+    if kind == "fcdd":
+        ell = draw_ellipses_batch(torch.Generator().manual_seed(SEED + 11), b, (size, size),
+                                  **cfgs["fcdd"]["anomaly"]["drawing_params"])
+        return [torch.from_numpy(images[..., 0]), torch.zeros(b, dtype=torch.int32), ell,
+                torch.tensor([0.2, 0.7] * (b // 2))]
+    return [torch.from_numpy(images), torch.from_numpy(masks)]
+
+
+def _ad_hold_step(kind: str, t, state, args: list):
+    if kind == "ae":
+        return t._step(state, args[0], None)
+    if kind == "fcdd":
+        return t._step(state, args[0], args[1], None, ellipses=args[2], u=args[3])
+    return t._step(state, args[0], args[1], t._generator(SEED))
+
+
+def _ad_hold_run(kind: str, cfgs: dict, dev, inputs: list, threads: int) -> dict:
+    """Three steps on one batch: the losses, the weights before the first
+    step, after it and after the third, the running statistics after the
+    third."""
+    torch.set_num_threads(threads)
+    t = _ad_trainer(kind, cfgs, dev, AD_HOLD_BATCH, hold=True)
+    net = _net_of(t)
+    state = t._train_state(1)
+    net.train()
+    args = [a.to(t.device) for a in inputs]
+
+    def params():
+        return torch.cat([p.detach().flatten().cpu() for p in net.parameters()])
+
+    out = {"p0": params(), "losses": []}
+    for i in range(3):
+        out["losses"].append(float(_ad_hold_step(kind, t, state, args)))
+        if i == 0:
+            out["p1"] = params()
+    out.update(p3=params(), lrs=[state.schedule(i) for i in range(3)],
+               stats=torch.cat([b.detach().flatten().cpu() for k, b in net.named_buffers()
+                                if "running" in k]))
+    net.eval()
+    return out
+
+
+def _ellipse_edges(draws: dict, shape) -> np.ndarray:
+    """(B, H, W): pixels whose ellipse equation is within 1e-4 of 1 for a
+    valid ellipse, from the draws in float64 (the render's float32 may fall
+    either side)."""
+    h, w = shape
+    d = {k: v.cpu().numpy().astype(np.float64) for k, v in draws.items()}
+    py, px = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = np.zeros((len(d["n"]), h, w), bool)
+    for i in range(len(d["n"])):
+        for j in range(int(d["n"][i])):
+            dy, dx = py - d["cy"][i, j], px - d["cx"][i, j]
+            c, s = np.cos(d["theta"][i, j]), np.sin(d["theta"][i, j])
+            q = (((dy * c + dx * s) / max(d["minor"][i, j], 1e-3)) ** 2
+                 + ((-dy * s + dx * c) / max(d["major"][i, j], 1e-3)) ** 2)
+            out[i] |= np.abs(q - 1.0) < 1e-4
+    return out
+
+
+def _ad_holds(cfgs: dict, images: np.ndarray, masks: np.ndarray) -> None:
+    """(e) card against CPU with TF32 off: three full-width steps of each
+    trainer, the ellipse render, the receptive upsample and grad_heatmap."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = torch.get_num_threads()
+    size = cfgs["fcdd"]["data"]["size"]
+    x, y = images[:AD_HOLD_BATCH], masks[:AD_HOLD_BATCH]
+    for kind, name in (("ae", "AE (AENet defaults, lambda 1)"),
+                       ("fcdd", "FCDD (configs/fcdd.json, injected ellipses)"),
+                       ("attn", "gated U-Net (configs/unet2d.json on 2 channels)")):
+        inputs = _ad_inputs(kind, cfgs, x, y)
+        card, cpu, ref = (_ad_hold_run(kind, cfgs, dev, inputs, threads)
+                          for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))))
+        torch.set_num_threads(n)
+        c = cpu["losses"]
+        step1 = abs(card["losses"][0] - c[0]) / abs(c[0])
+        traj, traj_ref = _rel(card["losses"], c), _rel(ref["losses"], c)
+        traj_lim = min(abs(b - a) / abs(b) for a, b in zip(c, c[1:])) / 4
+        lr = cpu["lrs"][0]
+        share, share_ref = (_share_within(r["p1"], cpu["p1"], lr / 10) for r in (card, ref))
+        share_skip = _share_within(cpu["p0"], cpu["p1"], lr / 10)
+        bound = adam_bound(cpu["lrs"], 0.9) + 1e-6
+        diff, diff_ref = (float((r["p3"] - cpu["p3"]).abs().max()) for r in (card, ref))
+        st, st_ref = (float((r["stats"] - cpu["stats"]).abs().max()) for r in (card, ref))
+        print(f"ad (e) step hold {name}, batch {AD_HOLD_BATCH} of {size}^2, TF32 off, card vs "
+              f"cpu ({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): step-1 "
+              f"loss rel diff {step1!r} (tolerance 1e-5); losses over 3 steps card "
+              f"{card['losses']!r} cpu {c!r}, max rel diff {traj!r} (reference {traj_ref!r}; "
+              f"tolerance a quarter of the least step-to-step change on the cpu {traj_lim!r}); "
+              f"share of the weights within lr/10 = {lr / 10!r} after step 1: card {share!r} "
+              f"(reference {share_ref!r}; a skipped step: {share_skip!r}; tolerance 0.98); max "
+              f"|diff| after step 3 {diff!r} (reference {diff_ref!r}; tolerance Adam's bound "
+              f"{bound!r}); running statistics max |diff| {st!r} (reference {st_ref!r}; "
+              f"tolerance max(1e-4, 10x the reference))")
+        check(step1 <= 1e-5 and traj <= traj_lim, f"ad {kind}: card and cpu losses disagree")
+        check(share >= 0.98 and diff <= bound, f"ad {kind}: card and cpu weights disagree")
+        check(st <= max(1e-4, 10 * st_ref), f"ad {kind}: card and cpu statistics disagree")
+
+    b = cfgs["fcdd"]["train"]["batch_size"]
+    params = cfgs["fcdd"]["anomaly"]["drawing_params"]
+    draws = draw_ellipse_params(torch.Generator().manual_seed(SEED + 12), b, (size, size),
+                                **params)
+    on_cpu = render_ellipses(draws, (size, size))
+    card_draws = {k: v.to(DEV) for k, v in draws.items()}
+    on_card = render_ellipses(card_draws, (size, size)).cpu()
+    render_ms = cuda_ms(render_ellipses, card_draws, (size, size))
+    edges = _ellipse_edges(draws, (size, size))
+    differ = (on_card != on_cpu).numpy()
+    s = torch.randn(b, 1, size // 8, size // 8, generator=torch.Generator().manual_seed(SEED))
+    std = cfgs["fcdd"]["anomaly"]["gauss_std"]
+    up_cpu = receptive_upsample(s, (size, size), std=std)
+    up_card = receptive_upsample(s.to(DEV), (size, size), std=std).cpu()
+    up_err = float((up_card - up_cpu).abs().max() / up_cpu.abs().max())
+    print(f"ad (e) ellipse render {b}x{size}^2 with {FCDD_CFG}'s drawing params, draws from one "
+          f"CPU generator: {int(differ.sum())} pixels differ card vs cpu, all within 1e-4 of an "
+          f"ellipse's edge {not (differ & ~edges).any()} ({int(edges.sum())} such pixels); "
+          f"ellipse share {float((on_cpu > 0).float().mean())!r}; render on the card "
+          f"{render_ms!r} ms; receptive upsample of {tuple(s.shape)} to {size}^2 (gauss_std "
+          f"{std}) max |diff| / max {up_err!r} (tolerance 1e-5)")
+    check(not (differ & ~edges).any(), "ad: card and cpu ellipse renders disagree")
+    check(up_err <= 1e-5, "ad: card and cpu receptive upsamples disagree")
+
+    # grad_heatmap in float32 and float64: the input gradient passes three
+    # max-pools, whose argmax a float32 rounding can move between two
+    # near-equal inputs, and such a flip moves a gradient to another pixel
+    # (the CPU, whose result does not depend on its thread count, shows no
+    # spread); in float64 no flip is left, and the card holds to the CPU
+    heat = {}
+    for dtype in (torch.float32, torch.float64):
+        for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))):
+            torch.set_num_threads(threads)
+            f = _ad_trainer("fcdd", cfgs, dev, 4)
+            f.net.to(dtype)
+            heat.setdefault(dtype, []).append({
+                m: torch.from_numpy(f.grad_heatmap(images[:4, ..., 0].astype(np.float64), m))
+                for m in ("grad", "xgrad")})
+    torch.set_num_threads(n)
+
+    def spread(a, b):
+        return {m: float((a[m] - b[m]).abs().max() / b[m].abs().max()) for m in a}
+
+    (c32, p32, _), (c64, p64, r64) = heat[torch.float32], heat[torch.float64]
+    l2_32 = {m: float((c32[m] - p32[m]).norm() / p32[m].norm()) for m in c32}
+    errs, refs = spread(c64, p64), spread(r64, p64)
+    print(f"ad (e) FCDD grad_heatmap of 4 slices of {size}^2, card vs cpu: float32 max |diff| / "
+          f"max {spread(c32, p32)!r}, rel L2 {l2_32!r} (max-pool argmax flips; not held); "
+          f"float64 max |diff| / max {errs!r} (reference {refs!r}; tolerance max(1e-9, 10x "
+          f"the reference))")
+    check(all(errs[m] <= max(1e-9, 10 * refs[m]) for m in errs),
+          "ad: card and cpu grad_heatmap disagree")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _ad_step_times(cfgs: dict, rsna: np.ndarray, labels: np.ndarray, att_images: np.ndarray,
+                   att_masks: np.ndarray):
+    """(f) warm ms per step of each ``AD_TIMED`` cell (TF32 on), FLOPs and
+    their rate, peak memory, and FCDD's heatmap ms per batch; returns the
+    warm (trainer, state, batch) of ``ae_bs32``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    size = cfgs["fcdd"]["data"]["size"]
+    warm = None
+    for cell, kind, bs in AD_TIMED:
+        t = _ad_trainer(kind, cfgs, DEV, bs)
+        net = _net_of(t)
+        src = att_images if kind == "attn" else rsna
+        state = t._train_state(max(1, len(src) // bs))
+        plan = np.random.default_rng(SEED).integers(0, len(src), size=(4, bs))
+        if kind == "ae":
+            batches = [torch.from_numpy(rsna[p]).to(DEV) for p in plan]
+        elif kind == "fcdd":
+            batches = [(torch.from_numpy(rsna[p]).to(DEV),
+                        torch.from_numpy(labels[p].astype(np.int32)).to(DEV)) for p in plan]
+        else:
+            batches = [(torch.from_numpy(att_images[p]).to(DEV),
+                        torch.from_numpy(att_masks[p]).to(DEV)) for p in plan]
+        net.train()
+        ms = _ssl_warm_ms(t, state, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as fc:
+            t._train_step(state, batches[0], 99)
+        flops = fc.get_total_flops()
+        tflops = flops / ms / 1e9
+        extra = ""
+        if kind == "fcdd":
+            x = batches[0][0][:, None]
+            net.eval()
+
+            def heatmap():
+                with torch.inference_mode():
+                    return FCDD_CNN_VGG.heatmap(net(x), (size, size), std=t.gauss_std)
+
+            extra = (f"; heatmap (forward and receptive upsample, eval) {cuda_ms(heatmap)!r} ms "
+                     f"per batch of {bs}")
+        print(f"{cell}: {AD_CELLS[kind]}, batch {bs} of {size}^2, float32 (TF32 on): {ms!r} ms/step = {bs / ms * 1e3!r} slices/s; "
+              f"{flops / 1e12!r} TFLOP per step (FlopCounterMode: forward and backward) = "
+              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"peak device memory {peak!r} GiB{extra}")
+        if kind == "ae":
+            warm = (t, state, batches[0])
+        else:
+            net.eval()
+            del t, state, batches
+            torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"ad nvidia-smi after the timed steps: {smi}")
+    return warm
+
+
+AD_RANGES = ("anomalies", "net", "loss", "Optimizer.step#Adam.step")
+
+
+def _ad_profile(t, state, batch) -> None:
+    """One warm ``ae_bs32`` step under torch.profiler, and the kernels that
+    the transposed convs' backward launched (the ``convolution_backward``
+    calls whose weight has a ``ConvTranspose2d``'s shape)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        t._train_step(state, batch, 500)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t.net.eval()
+    print(_profile_summary(prof, wall_ms, f"ad profile (one warm ae_bs32 step, batch "
+                           f"{t.batch_size}, TF32 on)", OP_GROUPS_TRAIN, AD_RANGES))
+    shapes = {tuple(m.weight.shape) for m in t.net.modules()
+              if isinstance(m, torch.nn.ConvTranspose2d)}
+    found = defaultdict(float)
+
+    def walk(e):
+        for k in e.kernels:
+            found[k.name] += k.duration
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if (e.name == "aten::convolution_backward" and len(e.input_shapes) > 2
+                and tuple(e.input_shapes[2]) in shapes):
+            walk(e)
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == cuda and e.key not in AD_RANGES) or 1.0
+    print("ad profile transposed-conv backward kernels: " + (", ".join(
+        f"{k[:80]} {100 * v / total:.1f}%" for k, v in sorted(found.items(), key=lambda kv: -kv[1]))
+        or "none linked to their convolution_backward calls")
+        + f"; {100 * sum(found.values()) / total:.1f}% of the step's device time")
+
+
+def phase_ad(work: str, data) -> None:
+    """Phase 11 on phase 8's RSNA slices and phase 9's SegICH 2D tree."""
+    cfgs = load_ad_cfgs(work)
+    labels = np.asarray(data.labels)[:, 0]
+    normal = np.ascontiguousarray(data.images[labels == 0])
+    check(data.images.shape[1] == cfgs["fcdd"]["data"]["size"],
+          "ad: phase 8's slices are not the config's size")
+    n_tree = (SEGICH2D_TREE[0] * SEGICH2D_TREE[1], SEGICH2D_TREE[0])
+    edt.launches = edt.mask_launches = 0
+    _ad_ae(cfgs["ae"], work, normal, n_tree)
+    torch.cuda.empty_cache()
+    _ad_fcdd(cfgs["fcdd"], work, n_tree)
+    torch.cuda.empty_cache()
+    att_images, att_masks = _ad_attention(cfgs, work)
+    torch.cuda.empty_cache()
+    _ad_holds(cfgs, att_images, att_masks)
+    torch.cuda.empty_cache()
+    _ad_profile(*_ad_step_times(cfgs, np.ascontiguousarray(data.images), labels, att_images,
+                                att_masks))
+    launches = _edt_launches()
+    print(f"ad EDT launches on phase 11's paths {launches}")
+    check(not any(launches.values()), "ad: an EDT kernel ran on phase 11's paths")
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -2690,6 +3238,8 @@ def main() -> None:
         phase_cls(work, data)
         torch.cuda.empty_cache()
         gan_launches = phase_gan(work, data)
+        torch.cuda.empty_cache()
+        phase_ad(work, data)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

@@ -1,8 +1,10 @@
 """Dataset loaders (counterpart of :mod:`ich_tpu.data.datasets`): the 3D
-SegICH loader, the brain-extraction 2D loader, the RSNA slice loader of
-pretraining, and the RSNA
-label pivot of ``scripts/data_preparation.py gen-rsna-csv`` as a function.
-CSVs go through the ``csv`` module: the loaders need no pandas."""
+SegICH loader, the brain-extraction 2D loader, the attention U-Net's 2D
+loader (image and anomaly map as two channels), the RSNA slice loader of
+pretraining, the image / mask pair loader, and the RSNA label pivot of
+``scripts/data_preparation.py gen-rsna-csv`` as a function. CSVs go through
+the ``csv`` module or :mod:`ich_tpu_torch.data.table`: the loaders need no
+pandas, and the images no PIL."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D, VolumeDataset3D
 from ich_tpu_torch.data.dicom import read_ct_hu
-from ich_tpu_torch.data.segich import _resize_host, load_segich_2d
+from ich_tpu_torch.data.segich import NO_MASK, _resize_host, load_segich_2d, read_image
+from ich_tpu_torch.data.table import read_csv
 from ich_tpu_torch.ops.ct import _resampled_shape, resample_ct, resize_nearest_zoom, window_ct
 
 RSNA_LABEL_COLUMNS = ("Hemorrhage", "epidural", "intraparenchymal", "intraventricular",
@@ -52,6 +55,70 @@ def load_segich_3d(
         masks.append(np.transpose(m.numpy(), (2, 0, 1)))
         ids.append(pid)
     return VolumeDataset3D(vols, masks, np.asarray(ids))
+
+
+def load_segich_attention_2d(
+    data_dir: str,
+    info_df=None,
+    window: Tuple[float, float] = (50, 200),
+    size: int = 256,
+    attention_col: str = "attention_fn",
+) -> SliceDataset2D:
+    """2D slices with an anomaly-attention map stacked as channel 2
+    (reference ``public_SegICH_AttentionDataset2D``, ``datasets.py:96-172``):
+    images (N, size, size, 2). ``info_df`` (a Table or DataFrame) or
+    ``<data_dir>/info.csv`` holds ``PatientNumber``, ``SliceNumber``,
+    ``CT_fn``, ``mask_fn`` and ``attention_col``, the file names relative to
+    ``data_dir``. Channel 0 is the windowed slice, channel 1 the attention
+    map divided by its maximum, both resized at order 1; an attention entry
+    of ``""``, ``"-"``, ``"None"`` or ``"nan"`` (or empty) leaves channel 1
+    at 0. Masks as :func:`load_segich_2d`'s."""
+    if info_df is None:
+        info_df = read_csv(os.path.join(data_dir, "info.csv"))
+    rows = info_df.to_dict("records")
+    n = len(rows)
+    images = np.zeros((n, size, size, 2), dtype=np.float32)
+    masks = np.zeros((n, size, size), dtype=np.float32)
+    vol_ids = np.zeros(n, dtype=np.int32)
+    slice_nbrs = np.zeros(n, dtype=np.int32)
+    for i, row in enumerate(rows):
+        img = read_image(os.path.join(data_dir, str(row["CT_fn"]))).astype(np.float32)
+        img = window_ct(torch.from_numpy(img), window[0], window[1]).numpy()
+        images[i, :, :, 0] = _resize_host(img, size, order=1)
+        att_fn = row.get(attention_col, None)
+        if isinstance(att_fn, str) and att_fn not in NO_MASK:
+            att = read_image(os.path.join(data_dir, att_fn)).astype(np.float32)
+            att = att / max(att.max(), 1e-8)
+            images[i, :, :, 1] = _resize_host(att, size, order=1)
+        mask_fn = row.get("mask_fn", None)
+        if isinstance(mask_fn, str) and mask_fn not in NO_MASK:
+            m = read_image(os.path.join(data_dir, mask_fn)).astype(np.float32)
+            masks[i] = _resize_host((m > 0).astype(np.float32), size, order=0)
+        vol_ids[i] = int(row["PatientNumber"])
+        slice_nbrs[i] = int(row["SliceNumber"])
+    return SliceDataset2D(images, masks, vol_ids, slice_nbrs)
+
+
+def load_img_mask_pairs(pairs: Sequence[Tuple[str, str]],
+                        size: Optional[int] = None) -> SliceDataset2D:
+    """(image_fn, mask_fn) pairs (reference ``ImgMaskDataset``,
+    ``datasets.py:542-601``): each image read (``.tif``, ``.bmp`` or
+    ``.png``) and divided by 255 when its maximum is above 1, each mask made
+    binary (> 0), both resized to ``size`` (order 1 and 0) when given. Volume
+    ids are the pair's index, slice numbers 0."""
+    images, masks = [], []
+    for im_fn, mask_fn in pairs:
+        img = read_image(im_fn).astype(np.float32)
+        if img.max() > 1:
+            img = img / 255.0
+        m = (read_image(mask_fn) > 0).astype(np.float32)
+        if size is not None:
+            img = _resize_host(img, size, order=1)
+            m = _resize_host(m, size, order=0)
+        images.append(img)
+        masks.append(m)
+    n = len(images)
+    return SliceDataset2D(np.stack(images), np.stack(masks), np.arange(n), np.zeros(n, np.int32))
 
 
 def load_brain_extract_2d(

@@ -1,6 +1,6 @@
 """publicSegICH2D loading (counterpart of :mod:`ich_tpu.data.segich`): the
 CSV-driven host path that decodes the whole (windowed, resized) dataset once
-into dense arrays.
+into dense arrays. Slices are ``.tif``, ``.bmp`` or ``.png`` files.
 
 ``ct_info.csv`` rows (PatientNumber, SliceNumber, CT_fn, mask_fn,
 Hemorrhage) reference per-slice tif images and bmp masks; ``patient_info.csv``
@@ -20,6 +20,7 @@ import torch
 
 from ich_tpu_torch.data.bmp import read_bmp
 from ich_tpu_torch.data.core import SliceDataset2D
+from ich_tpu_torch.data.png import read_png_gray
 from ich_tpu_torch.data.table import read_csv
 from ich_tpu_torch.data.tiff import read_tiff
 from ich_tpu_torch.ops.ct import window_ct
@@ -28,12 +29,15 @@ NO_MASK = ("", "-", "None", "nan")  # mask_fn cells that name no mask file
 
 
 def read_image(path: str) -> np.ndarray:
-    """A ``.tif`` or ``.bmp`` slice as PIL's ``np.asarray(Image.open(path))``."""
+    """A ``.tif``, ``.bmp`` or 8-bit grayscale ``.png`` slice as PIL's
+    ``np.asarray(Image.open(path))``."""
     if path.lower().endswith((".tif", ".tiff")):
         return read_tiff(path)
     if path.lower().endswith(".bmp"):
         return read_bmp(path)
-    raise ValueError(f"{path}: only .tif and .bmp slices are read")
+    if path.lower().endswith(".png"):
+        return read_png_gray(path)
+    raise ValueError(f"{path}: only .tif, .bmp and .png slices are read")
 
 
 def _resize_host(img: np.ndarray, size: int, order: int) -> np.ndarray:

@@ -41,6 +41,23 @@ from ich_tpu_torch.utils.logging import setup_logger
 INFO_COLUMNS = ("PatientNumber", "SliceNumber", "attention_fn")
 
 
+def save_attention_map(export_dir: str, vol_id: int, slice_nbr: int, amap: np.ndarray) -> str:
+    """Write one slice's anomaly map, clipped to [0, 1], as the 8-bit PNG
+    ``export_dir/{vol}/{slice}_attention.png``; returns its path relative
+    to ``export_dir``."""
+    os.makedirs(os.path.join(export_dir, str(vol_id)), exist_ok=True)
+    rel = f"{vol_id}/{slice_nbr}_attention.png"
+    save_png_gray(os.path.join(export_dir, rel), (np.clip(amap, 0, 1) * 255).astype(np.uint8))
+    return rel
+
+
+def write_attention_info(export_dir: str, rows: Sequence[tuple]) -> None:
+    """``export_dir/info.csv``: a leading index, then (PatientNumber,
+    SliceNumber, attention_fn) per row."""
+    write_csv(os.path.join(export_dir, "info.csv"), ("",) + INFO_COLUMNS,
+              ([j, *r] for j, r in enumerate(rows)))
+
+
 def build_detector(cfg: dict, device: str | torch.device = "cuda") -> InpaintAnomalyDetector:
     """The detector around the generator of ``ad.generator_path``."""
     ad = cfg["ad"]
@@ -82,15 +99,10 @@ def run_ad_inpainting(cfg: dict, export_attention: Optional[str] = None,
             pred, amap = np.zeros_like(img, dtype=bool), np.zeros_like(img)
         rows.append(slice_score_row(pred, test.masks[i], vid, snb))
         if export_attention:
-            os.makedirs(os.path.join(export_attention, str(vid)), exist_ok=True)
-            rel = f"{vid}/{snb}_attention.png"
-            save_png_gray(os.path.join(export_attention, rel),
-                          (np.clip(amap, 0, 1) * 255).astype(np.uint8))
-            att_rows.append((vid, snb, rel))
+            att_rows.append((vid, snb, save_attention_map(export_attention, vid, snb, amap)))
     _, (_, vol) = write_prediction_scores(rows, out_dir)
     if export_attention and att_rows:
-        write_csv(os.path.join(export_attention, "info.csv"), ("",) + INFO_COLUMNS,
-                  ([j, *r] for j, r in enumerate(att_rows)))
+        write_attention_info(export_attention, att_rows)
     return out_dir, vol
 
 

@@ -51,11 +51,8 @@ def build_augment_fn(spec: dict) -> Optional[Compose]:
 
 
 def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0) -> UNet:
-    """The config's U-Net, its weights drawn from ``seed`` (torch's global
-    generator is left as it was)."""
-    if net_cfg.get("gated", False):
-        raise NotImplementedError("the gated U-Net is not ported yet: it comes with the "
-                                  "anomaly-detection slice of the port (ROADMAP.md §1)")
+    """The config's U-Net (gated with ``gated``), its weights drawn from
+    ``seed`` (torch's global generator is left as it was)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         return UNet(
@@ -69,6 +66,7 @@ def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0) -> UN
             p_dropout=net_cfg.get("p_dropout", 0.5),
             use_final_activation=net_cfg.get("use_final_activation", True),
             norm=net_cfg.get("norm", norm),
+            gated=net_cfg.get("gated", False),
         )
 
 

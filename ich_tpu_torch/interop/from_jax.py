@@ -1,5 +1,5 @@
-"""Convert the JAX package's U-Net family, ResNet and SN-PatchGAN variables
-to port ``state_dict``s.
+"""Convert the JAX package's U-Net family, ResNet, SN-PatchGAN, autoencoder
+and FCDD variables to port ``state_dict``s.
 
 The inverse of ``ich_tpu.interop.torch_port``'s ``port_unet``,
 ``port_unet_encoder``, ``port_partial_unet`` and ``port_resnet``: flax
@@ -10,7 +10,11 @@ their counterparts in :mod:`ich_tpu_torch.models.unet` and
 :mod:`ich_tpu_torch.models.resnet`; the generators and the discriminator of
 :mod:`ich_tpu.models.inpainting` likewise for
 :mod:`ich_tpu_torch.models.inpainting` (with the discriminator's
-``spectral_stats`` as the ``u`` and ``sigma`` buffers). Layouts converted:
+``spectral_stats`` as the ``u`` and ``sigma`` buffers); ``AENet`` and
+``FCDD_CNN_VGG`` for :mod:`ich_tpu_torch.models.ae` and
+:mod:`ich_tpu_torch.models.fcdd`. A gated U-Net (``UNet(gated=True)``)
+converts as any U-Net: each of its convs emits ``2 ch`` channels, the
+features first, in both packages, under the same keys. Layouts converted:
 
 - conv kernels: flax HWIO / DHWIO -> torch OIHW / OIDHW;
 - transposed-conv kernels: flax ``(*k, I, O)`` -> torch ``(I, O, *k)``, with
@@ -113,6 +117,49 @@ def unet_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
     e.encoder()
     e.decoder()
     e.conv("final_conv", "final_conv")
+    return e.sd
+
+
+def ae_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``AENet`` variables -> port ``AENet`` ``state_dict``, either
+    decoder: a bilinear decoder's first conv has a 3x3 kernel, the
+    transposed-conv decoder's a 2x2 one."""
+    e = _Emitter(variables)
+    e.conv("encoder/in_conv", "encoder.in_conv.0")
+    e.norm("encoder/in_bn", "encoder.in_conv.1")
+    enc = e.params["encoder"]
+    for i in range(sum(1 for k in enc if k.startswith("conv"))):
+        e.conv(f"encoder/conv{i}", f"encoder.conv_list.{i}.0")
+        e.norm(f"encoder/bn{i}", f"encoder.conv_list.{i}.1")
+    e.conv("encoder/bottleneck_conv", "encoder.bottelneck_conv.0")
+    e.norm("encoder/bottleneck_bn", "encoder.bottelneck_conv.1")
+    dec = e.params["decoder"]
+    bilinear = np.asarray(dec["bottleneck_convT"]["kernel"]).shape[0] == 3
+    ci, bi = (1, 2) if bilinear else (0, 1)  # the bilinear upsample sits at 0
+    weight = conv_weight if bilinear else convt_weight
+    e.conv("decoder/bottleneck_convT", f"decoder.bottelneck_conv.{ci}", weight=weight)
+    e.norm("decoder/bottleneck_bn", f"decoder.bottelneck_conv.{bi}")
+    for i in range(sum(1 for k in dec if k.startswith("convT"))):
+        e.conv(f"decoder/convT{i}", f"decoder.conv_list.{i}.{ci}", weight=weight)
+        e.norm(f"decoder/bn{i}", f"decoder.conv_list.{i}.{bi}")
+    e.conv("decoder/out_conv", "decoder.out_conv.0")
+    e.norm("decoder/out_bn", "decoder.out_conv.1")
+    return e.sd
+
+
+# FCDD_CNN_VGG's (conv, BatchNorm) pairs in the reference's ``features``
+# Sequential (ReLU and max-pool layers hold no parameters)
+_FCDD_CONV_IDX = (0, 4, 8, 11, 15, 18)
+
+
+def fcdd_state_dict_from_jax(variables: Mapping) -> Dict[str, Array]:
+    """JAX ``FCDD_CNN_VGG`` variables -> port ``FCDD_CNN_VGG``
+    ``state_dict``."""
+    e = _Emitter(variables)
+    for i, idx in enumerate(_FCDD_CONV_IDX):
+        e.conv(f"conv{i}", f"features.{idx}")
+        e.norm(f"bn{i}", f"features.{idx + 1}")
+    e.conv("conv_final", "conv_final")
     return e.sd
 
 

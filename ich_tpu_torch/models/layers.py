@@ -216,6 +216,11 @@ class ConvBlock(nn.Module):
     dropout at the end (off in eval). Submodule names ``conv1``, ``bn1``,
     ``conv2``, ``bn2`` follow the reference's torch ``ConvBlock``.
 
+    ``gated``: each conv is a gated conv (Yu 2019; the reference's
+    ``GatedUNet``, ``GatedUNet.py:121-320``), as the JAX package's: one
+    conv emits ``2 ch`` channels, and the first half (the features) times
+    the sigmoid of the second (the gate) goes on.
+
     ``remat``: while gradients are recorded, the block runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept and
     its activations are recomputed in the backward pass, as the JAX
@@ -226,19 +231,28 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: int | None = None,
                  ndim: int = 2, p_dropout: float = 0.0, norm: str = "batch",
-                 remat: bool = False):
+                 remat: bool = False, gated: bool = False):
         super().__init__()
         mid = mid_channels or out_channels
-        self.conv1 = _CONV[ndim](in_channels, mid, 3, padding=1)
+        g = 2 if gated else 1
+        self.conv1 = _CONV[ndim](in_channels, g * mid, 3, padding=1)
         self.bn1 = make_norm(norm, mid, ndim)
-        self.conv2 = _CONV[ndim](mid, out_channels, 3, padding=1)
+        self.conv2 = _CONV[ndim](mid, g * out_channels, 3, padding=1)
         self.bn2 = make_norm(norm, out_channels, ndim)
         self.dropout = Dropout(p_dropout) if p_dropout > 0.0 else nn.Identity()
         self.remat = remat
+        self.gated = gated
+
+    def _conv(self, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        y = conv(x)
+        if not self.gated:
+            return y
+        feat, gate = torch.chunk(y, 2, dim=1)
+        return feat * torch.sigmoid(gate)
 
     def _body(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn1(self._conv(self.conv1, x)))
+        x = F.relu(self.bn2(self._conv(self.conv2, x)))
         return self.dropout(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

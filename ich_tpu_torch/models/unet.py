@@ -62,7 +62,7 @@ class _UNetBody(nn.Module):
     def __init__(self, depth: int, ndim: int, bilinear: bool, in_channels: int,
                  top_filter: int, midchannels_factor: int,
                  p_dropout: Union[float, Sequence[float]], norm: str,
-                 dtype: torch.dtype, remat: bool, n_decoder: int):
+                 dtype: torch.dtype, remat: bool, n_decoder: int, gated: bool = False):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
@@ -77,11 +77,11 @@ class _UNetBody(nn.Module):
         for i, ch in enumerate(down):
             self.down_block.append(ConvBlock(
                 c, ch, ch // midchannels_factor, ndim=ndim, p_dropout=p_drop[i], norm=norm,
-                remat=remat))
+                remat=remat, gated=gated))
             c = ch
         self.bottleneck_block = ConvBlock(
             c, bottleneck, bottleneck // midchannels_factor, ndim=ndim,
-            p_dropout=p_drop[-1], norm=norm, remat=remat)
+            p_dropout=p_drop[-1], norm=norm, remat=remat, gated=gated)
         c = bottleneck
         self.up_samp = nn.ModuleList()
         self.up_block = nn.ModuleList()
@@ -90,7 +90,7 @@ class _UNetBody(nn.Module):
                 self.up_samp.append(up_conv(c, ch, ndim))
                 c = ch
             self.up_block.append(ConvBlock(down[-1 - i] + c, ch, ch, ndim=ndim, norm=norm,
-                                           remat=remat))
+                                           remat=remat, gated=gated))
             c = ch
         self.out_channels_body = c
 
@@ -113,16 +113,19 @@ class UNet(_UNetBody):
     """U-Net with ``depth - 1`` down blocks, a bottleneck, ``depth - 1`` up
     stages and a final 1x1 conv with a float32 sigmoid (one class) or
     softmax. ``forward(x, return_bottleneck=True)`` also returns the
-    bottleneck's features."""
+    bottleneck's features. ``gated=True`` makes every block's convs gated
+    convs (:class:`ich_tpu_torch.models.layers.ConvBlock`), the attention
+    U-Net's net; the keys stay the same."""
 
     def __init__(self, depth: int = 5, ndim: int = 2, bilinear: bool = False,
                  in_channels: int = 1, out_channels: int = 1, top_filter: int = 64,
                  midchannels_factor: int = 2,
                  p_dropout: Union[float, Sequence[float]] = 0.5,
                  use_final_activation: bool = True, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 gated: bool = False):
         super().__init__(depth, ndim, bilinear, in_channels, top_filter, midchannels_factor,
-                         p_dropout, norm, dtype, remat, n_decoder=depth - 1)
+                         p_dropout, norm, dtype, remat, n_decoder=depth - 1, gated=gated)
         self.out_channels = out_channels
         self.use_final_activation = use_final_activation
         self.final_conv = _CONV[ndim](self.out_channels_body, out_channels, 1)
@@ -183,10 +186,6 @@ NETWORKS.add("UNet_Encoder", lambda use_3D=False, MLP_head=(256, 128), **kw: UNe
 NETWORKS.add("Partial_UNet", lambda use_3D=False, head_channel=(64, 32), **kw: PartialUNet(
     ndim=3 if use_3D else 2, head_channel=tuple(head_channel), **kw))
 
-
-def _gated_unet(**kw):
-    raise NotImplementedError("the gated U-Net is not ported yet (ROADMAP.md §1, anomaly "
-                              "detection)")
-
-
-NETWORKS.add("GatedUNet", _gated_unet)
+# the attention U-Net: two input channels (image and anomaly map) by default
+NETWORKS.add("GatedUNet", lambda use_3D=False, in_channels=2, **kw: UNet(
+    ndim=3 if use_3D else 2, in_channels=in_channels, gated=True, **kw))

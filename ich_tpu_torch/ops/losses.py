@@ -5,8 +5,10 @@ Ported: the segmentation losses (``binary_dice_loss``, ``tversky_loss``,
 contrastive losses of SSL pretraining (``info_nce_loss``,
 ``local_info_nce_loss`` with ``sample_region_cells``) and the
 reconstruction losses (``mse_loss``, ``l1_loss``) and the classifier
-losses (``softmax_cross_entropy``, ``weighted_bce_with_logits``) and the
-SN-PatchGAN's hinge losses (``hinge_d_loss``, ``hinge_g_loss``). Layout is NHWC, as in
+losses (``softmax_cross_entropy``, ``weighted_bce_with_logits``), the
+SN-PatchGAN's hinge losses (``hinge_d_loss``, ``hinge_g_loss``), the
+autoencoder's gradient-difference loss (``gdl_loss``) and FCDD's
+hypersphere loss (``hsc_loss``). Layout is NHWC, as in
 the JAX package, and every loss computes in float32. The ``LOSSES``
 registry carries them under the reference's class names.
 """
@@ -238,6 +240,36 @@ def hinge_g_loss(d_fake: torch.Tensor) -> torch.Tensor:
     return -torch.mean(d_fake.to(torch.float32))
 
 
+def gdl_loss(im: torch.Tensor, rec: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    """Gradient-difference loss (reference ``LossFunctions.py:411-448``):
+    forward differences along H and W, zero-padded on the leading edge, of
+    the channel sum (the reference's channel-repeated 3x3 kernels), their
+    absolute values compared between ``im`` and ``rec`` and summed over
+    (H, W) per sample. NHWC input."""
+
+    def grads(x):
+        s = torch.sum(x.to(torch.float32), dim=-1)  # (B, H, W)
+        gh = s - F.pad(s, (1, 0))[:, :, :-1]  # d/dW
+        gv = s - F.pad(s, (0, 0, 1, 0))[:, :-1, :]  # d/dH
+        return torch.abs(gh), torch.abs(gv)
+
+    ih, iv = grads(im)
+    rh, rv = grads(rec)
+    return _reduce(torch.sum(torch.abs(ih - rh) + torch.abs(iv - rv), dim=(1, 2)), reduction)
+
+
+def hsc_loss(x: torch.Tensor, y: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    """FCDD's pseudo-Huber hypersphere loss (reference
+    ``LossFunctions.py:450-470``): per sample the mean of ``sqrt(x^2 + 1) -
+    1`` over the score map ``x`` (B, ...); a sample with label ``y == 1``
+    (an anomaly) takes ``-log(1 - exp(-a) + 1e-31)`` of it instead."""
+    x = x.to(torch.float32)
+    a = torch.mean((torch.sqrt(x * x + 1.0) - 1.0).reshape(x.shape[0], -1), dim=-1)
+    y = torch.as_tensor(y, device=a.device)
+    loss = torch.where(y == 1, -torch.log(1.0 - torch.exp(-a) + 1e-31), a)
+    return _reduce(loss, reduction)
+
+
 def _factory(fn: Callable, **defaults) -> Callable:
     def make(**kwargs):
         cfg = {**defaults, **kwargs}
@@ -255,6 +287,8 @@ LOSSES.add("InfoNCELoss",
 LOSSES.add("LocalInfoNCELoss", lambda tau=0.5, K=3, n_region=13, **kw: functools.partial(
     local_info_nce_loss, tau=tau, K=K, n_region=n_region))
 LOSSES.add("DiscountedL1", _factory(discounted_l1_loss))
+LOSSES.add("GDL", lambda reduction="mean", **kw: functools.partial(gdl_loss, reduction=reduction))
+LOSSES.add("HSCLoss", _factory(hsc_loss))
 LOSSES.add("MSELoss", _factory(mse_loss))
 LOSSES.add("L1Loss", _factory(l1_loss))
 # torch loss names used by the classification-pretraining configs

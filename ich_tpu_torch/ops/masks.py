@@ -1,5 +1,6 @@
-"""Free-form inpainting masks on the device (counterpart of
-:mod:`ich_tpu.ops.masks`: ``random_ff_mask``, ``random_ff_masks``).
+"""Free-form inpainting masks and FCDD's synthetic ellipses on the device
+(counterpart of :mod:`ich_tpu.ops.masks`: ``random_ff_mask``,
+``random_ff_masks``, ``draw_ellipses``, ``draw_ellipses_batch``).
 
 Each mask is split into a *draw* and a *render*:
 
@@ -18,13 +19,21 @@ Each mask is split into a *draw* and a *render*:
 Counts are padded to their maxima with validity masks, as in the JAX
 package, so the render has static shapes. The JAX draws come from
 ``jax.random`` and cannot be replayed by a torch generator: the tests hand
-the render JAX's draws. ``draw_ellipses`` (FCDD's anomalies) is not ported.
+the render JAX's draws.
+
+The ellipses are split the same way: :func:`draw_ellipse_params` draws,
+for a batch, the count ``n`` in ``[lo, hi)`` and ``hi - 1`` slots of
+centres ~ N(dim/2, dim/6), a major axis uniform in its range, a minor axis
+uniform up to ``min(minor_hi, major)``, a rotation and an intensity;
+:func:`render_ellipses` draws them in slot order on a zero image, each
+later ellipse overwriting the earlier ones, then adds the optional noise
+inside them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -129,3 +138,92 @@ def random_ff_masks(gen: torch.Generator, batch: int, shape: Tuple[int, int],
 def random_ff_mask(gen: torch.Generator, shape: Tuple[int, int], **kw) -> torch.Tensor:
     """One free-form mask (H, W)."""
     return random_ff_masks(gen, 1, shape, **kw)[0]
+
+
+def draw_ellipse_params(
+    gen: torch.Generator,
+    batch: int,
+    shape: Tuple[int, int],
+    n_ellipse: Tuple[int, int] = (1, 10),
+    major_axis: Tuple[int, int] = (1, 25),
+    minor_axis: Tuple[int, int] = (1, 25),
+    rotation: Tuple[float, float] = (0.0, 2 * math.pi),
+    intensity: Tuple[float, float] = (0.1, 1.0),
+    noise: Optional[float] = None,
+) -> Draws:
+    """The random parameters of ``batch`` ellipse images of ``shape``
+    (reference ``draw_ellipses``, ``datasets.py:685-719``), drawn from
+    ``gen`` on its device in the order of the keys below: ``n`` (B,) int64,
+    then (B, M) float32 with ``M = n_ellipse[1] - 1``: ``cy``, ``cx``,
+    ``major`` (the column radius), ``minor`` (the row radius, never above
+    the major), ``theta``, ``value``; with ``noise``, ``noise`` (B, H, W),
+    already scaled."""
+    h, w = shape
+    dev = gen.device
+    m = n_ellipse[1] - 1
+
+    def uniform(lo, hi, size):
+        # jax.random.uniform: lo + (hi - lo) u, never below lo
+        return torch.maximum(torch.rand(size, generator=gen, device=dev) * (hi - lo) + lo,
+                             torch.as_tensor(lo, dtype=torch.float32, device=dev))
+
+    out = {"n": torch.randint(int(n_ellipse[0]), int(n_ellipse[1]), (batch,), generator=gen,
+                              device=dev)}
+    out["cy"] = torch.randn((batch, m), generator=gen, device=dev) * (h / 6.0) + h / 2.0
+    out["cx"] = torch.randn((batch, m), generator=gen, device=dev) * (w / 6.0) + w / 2.0
+    out["major"] = uniform(float(major_axis[0]), float(major_axis[1]), (batch, m))
+    out["minor"] = uniform(float(minor_axis[0]),
+                           torch.clamp(out["major"], max=float(minor_axis[1])), (batch, m))
+    out["theta"] = uniform(float(rotation[0]), float(rotation[1]), (batch, m))
+    out["value"] = uniform(float(intensity[0]), float(intensity[1]), (batch, m))
+    if noise is not None:
+        out["noise"] = torch.randn((batch, h, w), generator=gen, device=dev) * noise
+    return out
+
+
+def render_ellipses(draws: Draws, shape: Tuple[int, int]) -> torch.Tensor:
+    """(B, H, W) float32 ellipse images from :func:`draw_ellipse_params`'s
+    tensors (or the same keys taken from JAX): zero background; pixel (y, x)
+    lies in ellipse i when ``(yr / minor)^2 + (xr / major)^2 <= 1`` for
+    its offsets from the centre rotated by ``theta`` (the radii at least
+    1e-3), and takes its value, slot by slot, so that later ellipses
+    overwrite earlier ones."""
+    h, w = shape
+    cy = draws["cy"].to(torch.float32)
+    b, m = cy.shape
+    dev = cy.device
+    cx = draws["cx"].to(torch.float32)
+    ra = torch.clamp(draws["minor"].to(torch.float32), min=1e-3)
+    rb = torch.clamp(draws["major"].to(torch.float32), min=1e-3)
+    th = draws["theta"].to(torch.float32)
+    cos, sin = torch.cos(th), torch.sin(th)
+    val = draws["value"].to(torch.float32)
+    py = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, h, 1)
+    px = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, w)
+    out = torch.zeros((b, h, w), dtype=torch.float32, device=dev)
+    for i in range(m):
+        def col(t):
+            return t[:, i].reshape(b, 1, 1)
+
+        dy, dx = py - col(cy), px - col(cx)
+        yr = dy * col(cos) + dx * col(sin)
+        xr = -dy * col(sin) + dx * col(cos)
+        inside = ((yr / col(ra)) ** 2 + (xr / col(rb)) ** 2 <= 1.0) & (i < draws["n"]).reshape(
+            b, 1, 1)
+        out = torch.where(inside, col(val), out)
+    if "noise" in draws:
+        out = torch.where(out > 0, torch.clamp(out + draws["noise"].to(torch.float32), 0.0, 1.0),
+                          out)
+    return out
+
+
+def draw_ellipses_batch(gen: torch.Generator, batch: int, shape: Tuple[int, int],
+                        **kw) -> torch.Tensor:
+    """A batch of ellipse images (B, H, W) on ``gen``'s device: draw, then
+    render."""
+    return render_ellipses(draw_ellipse_params(gen, batch, shape, **kw), shape)
+
+
+def draw_ellipses(gen: torch.Generator, shape: Tuple[int, int], **kw) -> torch.Tensor:
+    """One ellipse image (H, W)."""
+    return draw_ellipses_batch(gen, 1, shape, **kw)[0]

@@ -187,10 +187,23 @@ class _SSLBase:
         state.apply_gradients()
         return loss.detach()
 
+    def _start_epoch(self, epoch: int) -> None:
+        """Called before each epoch's first batch (the AE's GDL weight)."""
+
+    def _train_batches(self, dataset, plan: List[np.ndarray]):
+        """The training batches of one epoch's ``plan``: the images."""
+        return self._batches(dataset.images, plan)
+
+    def _validate_epoch(self, valid_dataset, epoch: int):
+        """(log suffix, extra history columns) after each epoch; the SSL
+        trainers validate nothing."""
+        return "", []
+
     def train(self, dataset, valid_dataset=None, checkpoint_path: Optional[str] = None) -> None:
         """``n_epoch`` epochs of ``len(dataset) // batch_size`` steps over
-        ``dataset.images``; ``valid_dataset`` is accepted for the JAX API and
-        unused, as there."""
+        ``dataset.images``; ``valid_dataset`` goes to
+        :meth:`_validate_epoch` after each epoch (the SSL trainers accept it
+        for the JAX API and leave it unused, as there)."""
         n = len(dataset)
         steps_per_epoch = max(1, n // self.batch_size)  # the last partial batch is dropped
         state = self._train_state(steps_per_epoch)
@@ -205,17 +218,20 @@ class _SSLBase:
             drawn[0] += 1
             plan = list(batch_indices(n, self.batch_size, shuffle=True, rng=host_rng,
                                       drop_last=True))
+            self._start_epoch(epoch)
             self.net.train()
-            for b, batch in enumerate(self._batches(dataset.images, plan)):
+            for b, batch in enumerate(self._train_batches(dataset, plan)):
                 if self.print_progress:
                     print_progressbar(b, len(plan), name="\t\tTrain Batch", erase=True)
                 yield batch
 
         def epoch_hook(state, epoch, mean_losses, epoch_time):
             mean_loss = float(mean_losses) if mean_losses is not None else 0.0
-            logger.info("\t| Epoch: %03d/%03d | Train time: %s | Train Loss: %.6f |",
-                        epoch + 1, self.n_epoch, timedelta(seconds=int(epoch_time)), mean_loss)
-            return [epoch + 1, mean_loss]
+            suffix, extra = self._validate_epoch(valid_dataset, epoch)
+            logger.info("\t| Epoch: %03d/%03d | Train time: %s | Train Loss: %.6f %s|",
+                        epoch + 1, self.n_epoch, timedelta(seconds=int(epoch_time)), mean_loss,
+                        suffix)
+            return [epoch + 1, mean_loss, *extra]
 
         try:
             history, wall = fit(

@@ -573,3 +573,101 @@ def test_detector_device_ops_card_match_cpu(card):
     a = InpaintAnomalyDetector(oracle, device="cpu", **kw).detect(image)
     b = InpaintAnomalyDetector(oracle, device="cuda", **kw).detect(image)
     assert np.array_equal(a, b) and a[22:32, 26:38].all()
+
+
+def _step_pair(build):
+    """A trainer on the CPU and one on the card holding the same weights."""
+    cpu = build("cpu")
+    gpu = build("cuda")
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    return cpu, gpu
+
+
+def _params_after(t, step_fn):
+    state = t._train_state(1)
+    t.net.train()
+    loss = float(step_fn(t, state))
+    return loss, torch.cat([p.detach().flatten().cpu() for p in t.net.parameters()])
+
+
+@pytest.mark.parametrize("kind", ["ae", "fcdd"])
+def test_ae_fcdd_steps_card_match_cpu(card, kind):
+    """One step of the AE (small AENet, lambda 1) or of FCDD (the VGG stack,
+    the ellipses and corruption draws injected) at batch 4 of 64^2: the loss
+    within rtol 1e-4, every weight within Adam's first-step bound and 98%
+    within lr / 10."""
+    from ich_tpu_torch.models.ae import AENet
+    from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG
+    from ich_tpu_torch.ops.masks import draw_ellipses_batch
+    from ich_tpu_torch.train.ae_trainer import AE
+    from ich_tpu_torch.train.fcdd_trainer import FCDD
+
+    lr = 1e-3
+    x = torch.from_numpy(np.random.default_rng(5).uniform(size=(4, 64, 64)).astype(np.float32))
+    if kind == "ae":
+        def build(dev):
+            torch.manual_seed(0)
+            t = AE(AENet(latent_channels=8, bottleneck_channels=8, n_conv=2), batch_size=4,
+                   lr=lr, device=dev)
+            t.lambda_gdl = 1.0
+            return t
+
+        def step(t, state):
+            return t._step(state, x.to(t.device), None)
+    else:
+        ell = draw_ellipses_batch(torch.Generator().manual_seed(6), 4, (64, 64),
+                                  major_axis=(3, 12), minor_axis=(2, 8))
+        u = torch.tensor([0.2, 0.7, 0.1, 0.4])
+        labels = torch.tensor([0, 0, 1, 0])
+
+        def build(dev):
+            torch.manual_seed(0)
+            return FCDD(FCDD_CNN_VGG(), batch_size=4, lr=lr, device=dev)
+
+        def step(t, state):
+            return t._step(state, x.to(t.device), labels.to(t.device), None,
+                           ellipses=ell.to(t.device), u=u.to(t.device))
+    (lc, pc), (lg, pg) = (_params_after(t, step) for t in _step_pair(build))
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    d = (pc - pg).abs()
+    assert float(d.max()) <= 2 * 1.005 * lr and float((d <= lr / 10).float().mean()) >= 0.98
+
+
+def test_gated_unet_step_card_matches_cpu(card):
+    """One UNet2D step of the gated U-Net on two channels (depth 4, top 8,
+    batch 4 of 64^2, dropout and augmentation off): the loss within rtol
+    1e-4, every weight within Adam's first-step bound and 98% within
+    lr / 10."""
+    lr = 1e-3
+    ds = synthetic_ich_slices(n_slices=4, size=64, n_volumes=1, seed=7, positive_frac=1.0)
+    x = torch.from_numpy(np.stack([ds.images, ds.masks * 0.7], -1).astype(np.float32))
+    y = torch.from_numpy(ds.masks)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        net = UNet(depth=4, top_filter=8, in_channels=2, p_dropout=0.0, gated=True)
+        t = UNet2D(net, batch_size=4, lr=lr, device=dev)
+        state = t._train_state(1)
+        net.train()
+        loss = float(t._step(state, x.to(t.device), y.to(t.device), t._generator(0)))
+        runs.append((loss, torch.cat([p.detach().flatten().cpu() for p in net.parameters()])))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    d = (pc - pg).abs()
+    assert float(d.max()) <= 2 * 1.005 * lr and float((d <= lr / 10).float().mean()) >= 0.98
+
+
+def test_ellipse_render_and_upsample_card_match_cpu(card):
+    """The ellipse render from one CPU generator's draws (equal but for
+    pixels on an ellipse's edge, at most 1e-4 of them) and the receptive
+    upsample of a 32x32 score map to 256^2 (within 1e-5 of its scale)."""
+    from ich_tpu_torch.models.fcdd import receptive_upsample
+    from ich_tpu_torch.ops.masks import draw_ellipse_params, render_ellipses
+
+    draws = draw_ellipse_params(torch.Generator().manual_seed(8), 32, (256, 256), noise=0.05)
+    cpu = render_ellipses(draws, (256, 256))
+    gpu = render_ellipses({k: v.cuda() for k, v in draws.items()}, (256, 256)).cpu()
+    assert float((cpu != gpu).float().mean()) <= 1e-4
+    s = torch.randn(4, 1, 32, 32, generator=torch.Generator().manual_seed(9))
+    a, b = receptive_upsample(s, (256, 256)), receptive_upsample(s.cuda(), (256, 256)).cpu()
+    assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())

@@ -126,8 +126,12 @@ def test_preemption_checkpoints_and_exits_143(tmp_path):
 
 
 def test_gated_unet_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="anomaly-detection slice"):
-        supervised2d.build_unet_from_cfg({"gated": True, "depth": 3})
+    """The config's ``gated`` builds the gated U-Net (each conv emits twice
+    its channels: features and gate); a missing card raises."""
+    net = supervised2d.build_unet_from_cfg({"gated": True, "depth": 3, "top_filter": 4,
+                                            "in_channels": 2})
+    assert net.down_block[0].gated and net.down_block[0].conv1.weight.shape[:2] == (4, 2)
+    assert net(torch.zeros(1, 2, 8, 8)).shape == (1, 1, 8, 8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             supervised2d.UNet2D(supervised2d.build_unet_from_cfg({"depth": 2}), device="cuda")

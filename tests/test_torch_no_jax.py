@@ -5,7 +5,9 @@ as well, the SegICH 2D CSV path runs: the supervised2d CLI takes a
 port-written tree to its aggregates on the CPU; and the SN-PatchGAN CLI
 trains a tiny generator on a port-written RSNA tree, whose weights the
 inpainting-AD CLI then runs (with a ResNet-18 gate) on a SegICH tree, its
-attention export included."""
+attention export included; the AE CLI trains and detects, the FCDD CLI
+trains and evaluates volumes, and the attention U-Net CLI runs on a tree
+merged from an attention export."""
 
 import os
 import subprocess
@@ -39,7 +41,11 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.models.inpainting", "ich_tpu_torch.train.gan",
                  "ich_tpu_torch.train.inpaint_ad", "ich_tpu_torch.data.png",
                  "ich_tpu_torch.experiments.inpainting_gan",
-                 "ich_tpu_torch.experiments.ad_inpainting"):
+                 "ich_tpu_torch.experiments.ad_inpainting", "ich_tpu_torch.models.ae",
+                 "ich_tpu_torch.models.fcdd", "ich_tpu_torch.train.ae_trainer",
+                 "ich_tpu_torch.train.fcdd_trainer", "ich_tpu_torch.experiments.ae_ad",
+                 "ich_tpu_torch.experiments.fcdd",
+                 "ich_tpu_torch.experiments.attention_unet2d"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()
@@ -156,3 +162,90 @@ def test_gan_and_ad_clis_run_without_jax_pandas_pil_or_sklearn(tmp_path):
     assert rows[0] == ",PatientNumber,SliceNumber,attention_fn" and len(rows) == 5
     assert rows[1].split(",")[0] == "0" and rows[1].endswith("_attention.png")
     assert all((tmp_path / "att" / r.split(",")[3]).exists() for r in rows[1:])
+
+
+AD_SUITE_PROBE = textwrap.dedent("""
+    import csv, json, os, sys
+    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "pandas", "PIL", "sklearn"):
+        sys.modules[name] = None  # any import of these now raises ImportError
+    import numpy as np
+    from ich_tpu_torch.data.datasets import write_rsna_slice_info
+    from ich_tpu_torch.data.segich import load_segich_2d
+    from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
+    from ich_tpu_torch.experiments import ae_ad, attention_unet2d, fcdd
+    from ich_tpu_torch.experiments.ad_inpainting import save_attention_map, write_attention_info
+    work = sys.argv[1]
+    rsna = os.path.join(work, "rsna", "stage_2_train")
+    label_csv = write_rsna_tree(os.path.join(work, "rsna"), n_slices=16, size=48, seed=3)
+    write_rsna_slice_info(label_csv, os.path.join(rsna, "slice_info.csv"))
+    seg = os.path.join(work, "segich")
+    write_segich_tree(synthetic_ich_slices(n_slices=12, size=40, n_volumes=4, seed=5), seg)
+    paths = {"RSNA_DATA": rsna, "DATA": seg, "OUTPUT": os.path.join(work, "out")}
+
+    def run(mod, cfg, *flags):
+        fn = os.path.join(work, cfg["exp_name"] + ".json")
+        with open(fn, "w") as f:
+            json.dump(cfg, f)
+        return mod.main([fn, "--device", "cpu", *flags])
+
+    ae = {"exp_name": "ae", "path": paths, "data": {"win_center": 50, "win_width": 200,
+          "size": 32}, "net": {"latent_channels": 4, "bottelneck_channels": 4, "n_conv": 2},
+          "train": {"n_epoch": 5, "batch_size": 4, "lr": 1e-3,
+                    "lambda_GDL": {"0": 0.0, "1": 1.0}}}
+    ae_dir = run(ae_ad, ae)
+    ae["ad"] = {"model_path": os.path.join(ae_dir, "ae.bin")}
+    run(ae_ad, ae, "--detect")
+
+    with open("configs/fcdd.json") as f:
+        fc = json.load(f)
+    fc["path"] = paths
+    fc["data"]["size"] = 32
+    fc["train"].update(n_epoch=1, batch_size=4)
+    fc_dir = run(fcdd, fc)
+    fc["ad"]["model_path"] = os.path.join(fc_dir, "fcdd.bin")
+    run(fcdd, fc, "--eval-volumes")
+
+    test = load_segich_2d(seg, size=40)
+    export = os.path.join(seg, "attention")
+    write_attention_info(export, [(int(v), int(s), save_attention_map(export, int(v), int(s), m))
+                                  for v, s, m in zip(test.vol_ids, test.slice_nbrs, test.images)])
+    with open(os.path.join(export, "info.csv"), newline="") as f:
+        att = {(r[1], r[2]): "attention/" + r[3] for r in list(csv.reader(f))[1:]}
+    with open(os.path.join(seg, "ct_info.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    with open(os.path.join(seg, "info.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([rows[0] + ["attention_fn"]]
+                                + [r + [att[(r[1], r[2])]] for r in rows[1:]])
+    with open("configs/unet2d.json") as f:
+        un = json.load(f)
+    un["exp_name"] = "att"
+    un["path"] = paths
+    un["data"]["size"] = 32
+    un["split"]["n_fold"] = 2
+    un["net"].update(depth=3, top_filter=4)
+    un["train"].update(n_epoch=1, batch_size=4)
+    att_dir = run(attention_unet2d, un)
+    loaded = [m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in
+              ("jax", "ich_tpu", "pandas", "PIL", "sklearn")]
+    assert not loaded, loaded
+    print(ae_dir, fc_dir, att_dir)
+""")
+
+
+def test_ae_fcdd_and_attention_clis_run_without_jax_pandas_pil_or_sklearn(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", AD_SUITE_PROBE, str(tmp_path)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ae_dir, fc_dir, att_dir = r.stdout.splitlines()[-1].split()
+    for name in ("checkpoint.bin", "ae.bin", "outputs.json", "valid/rec_ep5_0.png",
+                 "slice_prediction_scores.csv", "volume_prediction_scores.csv"):
+        assert os.path.exists(os.path.join(ae_dir, name)), name
+    for name in ("fcdd.bin", "outputs.json", "localization/anomaly_0.png",
+                 "slice_prediction_scores.csv", "volume_prediction_scores.csv"):
+        assert os.path.exists(os.path.join(fc_dir, name)), name
+    with open(os.path.join(ae_dir, "slice_prediction_scores.csv")) as f:
+        header = f.readline().strip().split(",")
+    assert header[-1] == "pixel_AUC"
+    for name in ("average_scores.txt", "all_volume_prediction.csv", "Fold_2/trained_unet.bin"):
+        assert os.path.exists(os.path.join(att_dir, name)), name

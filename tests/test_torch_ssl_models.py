@@ -192,8 +192,9 @@ def test_network_registry_and_freeze_mask():
     assert isinstance(part, PartialUNet) and len(part.up_block) == 1
     unet = config.NETWORKS.build("UNet", use_3D=True, depth=2, top_filter=4)
     assert isinstance(unet, UNet) and unet.ndim == 3
-    with pytest.raises(NotImplementedError, match="gated"):
-        config.NETWORKS.build("GatedUNet", depth=2)
+    gated = config.NETWORKS.build("GatedUNet", depth=2, top_filter=4)
+    assert isinstance(gated, UNet) and gated.bottleneck_block.gated
+    assert gated.down_block[0].conv1.weight.shape[1] == 2  # image and attention map
     names = [k for k, _ in part.named_parameters()]
     moved = [k for k in part.state_dict() if k.startswith("down_block.0.")]
     frozen = ckpt.freeze_mask(names, moved)
