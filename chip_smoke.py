@@ -180,11 +180,38 @@ its last line:
    ``fcdd_bs32`` and ``attn_unet2d_bs16``: warm step times with TF32,
    slices/s, FLOPs and their rate, peak memory, FCDD's heatmap ms per batch,
    and a profile of one ``ae_bs32`` step naming the transposed convs'
-   backward kernels.
+   backward kernels;
+12. multi-GPU: one rank a card (``torch.cuda.device_count()``, 1 on a
+   one-card machine), spawned with ``torch.multiprocessing``, NCCL through
+   a file rendezvous in the work dir, every sub-phase in that one group:
+   (a) ``UNet2D(mesh=)`` at ``configs/unet2d.json``'s width (global batch
+   16 of 256x256), three steps on a fixed batch with augmentation and
+   dropout off and TF32 off against the same trainer without a mesh on the
+   card (:func:`_mg_hold`), then 2 epochs of ``train`` on phase 6's
+   synthetic slices with the config's augmentation, the mean loss falling;
+   (b) ``UNet3D(mesh=)`` at ``configs/unet3d.json``'s width (batch 4 of
+   64x128x128), held the same way; (c) ``Contrastive(mesh=)`` global at
+   batch 64 and ``ContextRestoration(mesh=)`` at batch 32 at their configs'
+   width, held the same way; (d) the headline volume (64x512x512, 64^3
+   patches at overlap 0.5, the d4f16 GroupNorm bf16 net, 128 patches a
+   call) through ``sliding_window_inference_sharded`` against the serial
+   sliding window away from the global H edges, an identity net within
+   1e-4 of the input, and ``UNet2D.segment_volumes`` /
+   ``UNet3D.segment_volumes`` of three 512x512x40 and three 64x512x512
+   volumes on the mesh and ``volume_parallel_map`` of the serial body, the
+   masks equal to the serial path's; (e) the trained 2D state saved by the
+   group to the DCP store and restored by a fresh world-1 group, every
+   value equal; (f) warm ``train2d_bs16`` and
+   ``ssl_contrastive_global_bs64`` steps of the data-parallel trainer
+   beside the plain one, the gradient all-reduce's bytes and ms, a
+   profile of one warm data-parallel ``train2d_bs16`` step, and the halo
+   path's seconds a volume beside the serial sliding window's. The
+   EDT launches over phase 12 read 0; a rank's failure raises in the
+   parent.
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training, SSL, phase 9 and phase 11 paths must read
-0). The line
+read just after (the training, SSL, phase 9, phase 11 and phase 12 paths
+must read 0). The line
 before the last is a JSON object with each EDT kernel's launches on the
 path that owns it (the GAN training of phase 10 (a)), its launches by path
 (phase 4's EDT leg too), its error against the plain version, both times
@@ -195,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import json
 import os
 import shutil
@@ -210,7 +238,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from ich_tpu_torch import serve
+from ich_tpu_torch import parallel, serve
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.bmp import read_bmp, save_bmp_gray
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
@@ -267,6 +295,7 @@ from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmen
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
+from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.gan import SNPatchGAN
 from ich_tpu_torch.train.inpaint_ad import robust_anomaly_detect
@@ -898,16 +927,16 @@ def _fold_data(cfg: dict):
             for k in range(cfg["split"]["n_fold"])]
 
 
-def _trainer(cfg: dict, device, net: dict | None = None, **overrides) -> UNet2D:
+def _trainer(cfg: dict, device, net: dict | None = None, mesh=None, **overrides) -> UNet2D:
     """A trainer of the config's net and training settings, ``net`` and
-    ``overrides`` replacing some of them."""
+    ``overrides`` replacing some of them, on ``mesh`` if given."""
     tr = {**cfg["train"], **overrides}
     return UNet2D(build_unet_from_cfg({**cfg["net"], **(net or {})}, seed=SEED),
                   n_epoch=tr["n_epoch"], batch_size=tr["batch_size"], lr=tr["lr"],
                   lr_scheduler=tr["lr_scheduler"], lr_scheduler_kwargs=tr["lr_scheduler_kwargs"],
                   loss_fn=tr["loss_fn"], loss_fn_kwargs=tr["loss_fn_kwargs"],
                   weight_decay=tr["weight_decay"], seed=SEED,
-                  augment_fn=tr.get("augment_fn"), device=device)
+                  augment_fn=tr.get("augment_fn"), device=device, mesh=mesh)
 
 
 def _train_kfold(cfg: dict, folds: list) -> None:
@@ -1563,10 +1592,11 @@ class _TwoViews:
         return x if self.calls % 2 else x.flip(2)
 
 
-def _ssl_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1):
-    """A full-width trainer of ``kind`` from the seeded nets; the local one
-    with the seeded encoder transferred and frozen."""
-    tr = dict(n_epoch=n_epoch, batch_size=batch, lr=cfg["train"]["lr"], seed=SEED, device=device)
+def _ssl_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1, mesh=None):
+    """A full-width trainer of ``kind`` from the seeded nets, on ``mesh`` if
+    given; the local one with the seeded encoder transferred and frozen."""
+    tr = dict(n_epoch=n_epoch, batch_size=batch, lr=cfg["train"]["lr"], seed=SEED, device=device,
+              mesh=mesh)
     if kind == "cr":
         c = cfg["corruption"]
         return ContextRestoration(
@@ -3215,6 +3245,360 @@ def phase_ad(work: str, data) -> None:
     check(not any(launches.values()), "ad: an EDT kernel ran on phase 11's paths")
 
 
+# -- phase 12: multi-GPU -----------------------------------------------------------
+
+MG_WALL_S = 420  # the spawned group's limit
+MG_HOLD_STEPS = 3
+MG_TIMED_STEPS = 10
+# the synced BatchNorm's statistics and normalisation are these aten ops
+OP_GROUPS_MG = OP_GROUPS_TRAIN + (("collectives", ("nccl", "c10d", "all_reduce")),
+                                  ("elementwise and sums", ("aten::mul", "aten::add", "aten::sum",
+                                                            "aten::sub", "aten::rsqrt")))
+MG_RANGES = ("augment", "loss", "grad_all_reduce", "Optimizer.step#Adam.step")
+
+
+def _mg_steps(t, steps_per_epoch: int, step_fn) -> dict:
+    """``MG_HOLD_STEPS`` steps of trainer ``t`` through ``step_fn(t, state,
+    i)``: the losses, the weights and running statistics after step 1 (the
+    statistics of step 1's forward, taken at the shared starting weights),
+    and the step size."""
+    state = t._train_state(steps_per_epoch)
+    state.model.train()
+    flat = lambda ts: torch.cat([v.detach().flatten().float().cpu() for v in ts])  # noqa: E731
+    losses = []
+    for i in range(MG_HOLD_STEPS):
+        loss = step_fn(t, state, i)  # under a mesh, this rank's slice's loss
+        losses.append(float(loss if t.mesh is None else parallel.all_reduce_mean(loss, t.mesh)))
+        if i == 0:
+            step1 = flat(state.model.parameters())
+            stats = [b for b in state.model.buffers() if b.is_floating_point()]
+            stats = flat(stats) if stats else torch.zeros(0)
+    state.model.eval()
+    return {"losses": losses, "step1": step1, "stats": stats, "lr": state.schedule(0)}
+
+
+def _mg_hold(label: str, plain: dict, dp: dict, log) -> None:
+    """The data-parallel trainer against the trainer without a mesh on the
+    card, TF32 off, the same global batch and draws: the step-1 loss within
+    rtol 1e-5 and the 3-step losses within 2e-4 (phase 6 (b)); the weights
+    after step 1 within Adam's first-step bound (2 lr) and 95% within
+    lr / 10 (a gradient of float32 rounding can flip its sign under
+    another summation order); the running statistics after step 1 within
+    1e-3 in relative L2 (one-pass global statistics against cuDNN's; after
+    more steps they also follow the conv biases before each BatchNorm,
+    whose gradient is rounding and whose Adam step is ±lr)."""
+    loss1 = abs(dp["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    traj = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"], plain["losses"]))
+    d = (dp["step1"] - plain["step1"]).abs()
+    share, lr = float((d <= plain["lr"] / 10).float().mean()), plain["lr"]
+    st = (float((dp["stats"] - plain["stats"]).norm() / plain["stats"].norm())
+          if plain["stats"].numel() else 0.0)
+    log(f"multigpu {label} hold, TF32 off: losses dp {dp['losses']!r} plain "
+        f"{plain['losses']!r} (step-1 rel diff {loss1!r}, max {traj!r}); step-1 weights max "
+        f"|diff| {float(d.max())!r} (bound {2 * lr!r}), share within lr/10 {share!r}; step-1 "
+        f"running stats rel L2 diff {st!r}")
+    check(loss1 <= 1e-5 and traj <= 2e-4, f"multigpu {label}: losses disagree")
+    check(float(d.max()) <= 2 * lr and share >= 0.95, f"multigpu {label}: weights disagree")
+    check(st <= 1e-3, f"multigpu {label}: running statistics disagree")
+
+
+def _mg_turns(fns: dict, n: int) -> dict:
+    """Warm ms a call of each of ``fns`` over ``n`` calls, taken in turns
+    a, b, b, a (host clock around work that ends in a synchronize)."""
+    names = list(fns)
+    order = names + names[::-1]
+    for name in names:  # warm-up: cuDNN picks its algorithms
+        for i in range(3):
+            fns[name](i)
+    times = defaultdict(list)
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fns[name](i)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / n * 1e3)
+    return dict(times)
+
+
+def _mg_unet2d(mesh, work: str, log) -> UNet2D:
+    """(a) ``UNet2D(mesh=)`` at ``configs/unet2d.json``'s width; (f) its
+    warm step beside the plain step and the gradient all-reduce; returns
+    the warm data-parallel trainer."""
+    dev = mesh.device
+    cfg = load_train_cfg(work)
+    bs = cfg["train"]["batch_size"]
+    train = synthetic_ich_slices(n_slices=TRAIN_FOLD[0], size=cfg["data"]["size"],
+                                 n_volumes=TRAIN_FOLD[1], seed=SEED)
+    x, y = (torch.from_numpy(a[:bs]).to(dev) for a in (train.images, train.masks))
+    torch.backends.cudnn.allow_tf32 = False
+    step = lambda t, state, i: t._step(state, x, y, t._generator(i))  # noqa: E731
+    runs = [_mg_steps(_trainer(cfg, dev, net={"p_dropout": 0.0}, mesh=m), 1, step)
+            for m in (None, mesh)]
+    _mg_hold(f"train2d (batch {bs} of {cfg['data']['size']}^2, world {mesh.size})", *runs, log)
+    torch.backends.cudnn.allow_tf32 = True
+
+    aug = build_pipeline(cfg["data"]["augmentation"]["train"])
+    data = train.device_cache(dev)
+    t = _trainer(cfg, dev, n_epoch=2, augment_fn=aug, mesh=mesh)
+    t0 = time.perf_counter()
+    t.train(data)
+    wall = time.perf_counter() - t0
+    losses = [row[1] for row in t.outputs["train"]["evolution"]]
+    log(f"multigpu train2d: UNet2D(mesh=).train, 2 epochs of {len(train)} slices at global "
+        f"batch {bs} with the config's augmentation and dropout, world {mesh.size}: epoch "
+        f"losses {losses!r} in {wall!r} s")
+    check(all(np.isfinite(losses)) and losses[1] < losses[0],
+          f"multigpu train2d: the mean loss did not fall {losses}")
+
+    trainers = {name: _trainer(cfg, dev, augment_fn=aug, mesh=m)
+                for name, m in (("plain", None), ("dp", mesh))}
+    states = {name: t._train_state(len(train) // bs) for name, t in trainers.items()}
+    plan = np.random.default_rng(SEED).integers(0, len(train), size=(4, bs))
+    batches = list(trainers["plain"]._batches(data, plan))
+    for t in trainers.values():
+        t.unet.train()
+    ms = _mg_turns({name: (lambda i, name=name: trainers[name]._train_step(
+        states[name], batches[i % 4], i)) for name in trainers}, MG_TIMED_STEPS)
+    params = list(trainers["dp"].unet.parameters())
+    n_bytes = parallel.average_gradients(params, mesh)
+    ar_ms = cuda_ms(lambda: parallel.average_gradients(params, mesh))
+    log(f"multigpu train2d_bs16 warm step, TF32 on, world {mesh.size}: dp {ms['dp']!r} ms, plain "
+        f"{ms['plain']!r} ms (turns plain, dp, dp, plain); gradient all-reduce of "
+        f"{n_bytes} bytes ({n_bytes / 2**20:.2f} MiB, one float32 bucket): {ar_ms!r} ms "
+        f"(CUDA events, 20 calls)")
+    t = trainers["dp"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t._train_step(states["dp"], batches[0], MG_TIMED_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(_profile_summary(prof, wall_ms, f"multigpu train2d_bs16 dp profile (one warm step, "
+                         f"world {mesh.size}, TF32 on)", OP_GROUPS_MG, MG_RANGES))
+    for t in trainers.values():
+        t.unet.eval()
+    return trainers["dp"]
+
+
+def _mg_unet3d(mesh, work: str, log) -> None:
+    """(b) ``UNet3D(mesh=)`` at ``configs/unet3d.json``'s width."""
+    dev = mesh.device
+    cfg = load_train3d_cfg(work)
+    rng = np.random.default_rng(SEED)
+    vol, mask = head_ct_and_mask(rng, (256, 256, 64))
+    vol = np.clip((np.transpose(vol, (2, 0, 1)) - (WINDOW[0] - WINDOW[1] / 2)) / WINDOW[1], 0, 1)
+    mask = np.transpose(mask, (2, 0, 1)).astype(np.float32)
+    pd, ph, pw = cfg["data"]["patch_size"]
+    # the config's batch of 4, rounded up to a multiple of the world
+    bs = parallel.pad_to_multiple(cfg["train"]["batch_size"], mesh.size)
+    starts = [(0, 64 * (i // 2 % 2), 64 * (i % 2)) for i in range(bs)]
+    x, y = (torch.from_numpy(np.stack([a[z:z + pd, h:h + ph, w:w + pw] for z, h, w in starts])
+                             .astype(np.float32)).to(dev) for a in (vol, mask))
+    torch.backends.cudnn.allow_tf32 = False
+    step = lambda t, state, i: t._step(state, x, y, t._generator(i))  # noqa: E731
+    runs = [_mg_steps(build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=SEED), dev,
+                                      batch_size=bs, mesh=m), cfg["train"]["steps_per_epoch"],
+                      step)
+            for m in (None, mesh)]
+    torch.backends.cudnn.allow_tf32 = True
+    _mg_hold(f"train3d (batch {bs} of {pd}x{ph}x{pw}, world {mesh.size})", *runs, log)
+
+
+def _mg_ssl(mesh, work: str, log) -> None:
+    """(c) ``Contrastive(mesh=)`` global at batch 64 and
+    ``ContextRestoration(mesh=)`` at batch 32; (f) the global step's warm
+    time beside the plain step's."""
+    dev = mesh.device
+    cfgs = {"cr": load_ssl_cfg(CR_CFG, work), "global": load_ssl_cfg(CON_CFG, work)}
+    data = synthetic_ich_slices(n_slices=64, size=cfgs["cr"]["data"]["size"], n_volumes=2,
+                                seed=SEED + 12)
+    torch.backends.cudnn.allow_tf32 = False
+    for kind, bs in (("global", 64), ("cr", 32)):
+        x = torch.from_numpy(data.images[:bs]).to(dev)
+        step = lambda t, state, i: t._step(state, x, t._generator(i))  # noqa: E731
+        runs = [_mg_steps(_ssl_trainer(kind, cfgs[kind], dev, bs, mesh=m), 1, step)
+                for m in (None, mesh)]
+        _mg_hold(f"ssl {kind} (batch {bs}, world {mesh.size})", *runs, log)
+    torch.backends.cudnn.allow_tf32 = True
+    x = torch.from_numpy(data.images).to(dev)
+    trainers = {name: _ssl_trainer("global", cfgs["global"], dev, 64, mesh=m)
+                for name, m in (("plain", None), ("dp", mesh))}
+    states = {name: t._train_state(1) for name, t in trainers.items()}
+    for t in trainers.values():
+        t.net.train()
+    ms = _mg_turns({name: (lambda i, name=name: trainers[name]._train_step(states[name], x, i))
+                    for name in trainers}, MG_TIMED_STEPS)
+    log(f"multigpu ssl_contrastive_global_bs64 warm step, TF32 on, world {mesh.size}: dp "
+        f"{ms['dp']!r} ms, plain {ms['plain']!r} ms (turns plain, dp, dp, plain)")
+
+
+def _mg_inference(mesh, work: str, log) -> None:
+    """(d) the headline volume through ``sliding_window_inference_sharded``,
+    the identity net, and ``segment_volumes`` of both trainers on a mesh
+    against the serial path."""
+    dev = mesh.device
+    rng = np.random.default_rng(SEED + 12)
+    patch = (PATCH3D,) * 3
+    vols3d = [np.ascontiguousarray(np.transpose(head_ct(rng, VOL3D_SHAPE), (2, 0, 1)))
+              for _ in range(N_VOLS)]
+    net = UNet(**NET3D, dtype=torch.bfloat16)
+    init_net(net, torch.Generator().manual_seed(SEED + 1))
+    t3 = UNet3D(net, patch_size=patch, device=dev, mesh=mesh)
+    _calibrate_final_bias_3d(t3.unet, vols3d[0])
+    parallel.replicate(t3.unet, mesh)  # rank 0's calibration on every rank
+    plain3 = UNet3D(UNet(**NET3D, dtype=torch.bfloat16), patch_size=patch, device=dev)
+    plain3.unet.load_state_dict(t3.unet.state_dict())
+
+    x = ct.window_ct(torch.from_numpy(vols3d[0]).to(dev), *WINDOW)
+    halo = lambda: parallel.sliding_window_inference_sharded(  # noqa: E731
+        t3.unet, x, mesh, patch_size=patch, overlap=0.5, batch_size=128)
+    probs, ref = halo(), _probs(t3, vols3d[0])
+    s = {"halo": [], "serial": []}
+    for name in ("halo", "serial", "serial", "halo"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        halo() if name == "halo" else _probs(t3, vols3d[0])
+        torch.cuda.synchronize()
+        s[name].append(time.perf_counter() - t0)
+    ident = parallel.sliding_window_inference_sharded(
+        lambda p: p, x, mesh, patch_size=patch, overlap=0.5, batch_size=128)
+    check(probs.shape == x.shape + (1,) and bool(torch.isfinite(probs).all()),
+          f"multigpu: sharded output {tuple(probs.shape)} or not finite")
+    # the halo is one stride, so the sharded grid is the serial one shifted by a
+    # whole stride: away from the global edges along H the voxels blend the
+    # same patches, each run by the bf16 net in other batches (cuDNN may take
+    # other algorithms); a wrong halo would differ by far more than bf16's
+    # rounding near every slab boundary
+    inner = slice(PATCH3D, x.shape[1] - PATCH3D)
+    agree = _agreement(probs[:, inner, :, 0] >= 0.5, ref[:, inner] >= 0.5)[0]
+    err = float((probs[:, inner, :, 0] - ref[:, inner]).abs().max())
+    err_id = float((ident[..., 0] - x).abs().max())
+    log(f"multigpu sliding_window_inference_sharded, {tuple(x.shape)}, 64^3 patches at overlap "
+        f"0.5, batch 128, d4f16 GroupNorm bf16, world {mesh.size}: {s['halo']!r} s a volume "
+        f"against the serial sliding window's {s['serial']!r} s (turns halo, serial, serial, "
+        f"halo); against the serial path on H in [{PATCH3D}, {x.shape[1] - PATCH3D}): "
+        f"probability max |diff| {err!r} (tolerance 2e-2, bf16's), mask agreement {agree!r} "
+        f"(tolerance 0.999); identity net max |err| {err_id!r} (tolerance 1e-4)")
+    check(err_id <= 1e-4, "multigpu: the sharded identity blend is not the input")
+    check(err <= 2e-2 and agree >= 0.999,
+          f"multigpu: the sharded blend differs from the serial path ({err}, {agree})")
+
+    net2 = UNet(**NET)
+    init_net(net2, torch.Generator().manual_seed(SEED))
+    t2 = UNet2D(net2, device=dev, mesh=mesh)
+    vols2d = [head_ct(rng) for _ in range(N_VOLS)]
+    _calibrate_final_bias(t2.unet, vols2d[0])
+    parallel.replicate(t2.unet, mesh)
+    plain2 = UNet2D(UNet(**NET), device=dev)
+    plain2.unet.load_state_dict(t2.unet.state_dict())
+    for label, t, plain, vols, kw in (
+            ("UNet2D", t2, plain2, vols2d, dict(window=WINDOW, input_size=(256, 256))),
+            ("UNet3D", t3, plain3, vols3d, dict(window=WINDOW))):
+        t0 = time.perf_counter()
+        got = t.segment_volumes(vols, return_preds=True, **kw)
+        wall = time.perf_counter() - t0
+        want = plain.segment_volumes(vols, return_preds=True, **kw)
+        body = (lambda v, t=t, kw=kw: t._enqueue(v, kw["window"], 0.5)) if label == "UNet3D" \
+            else (lambda v, t=t, kw=kw: t._enqueue(v, kw["input_size"], kw["window"]))
+        vpm = list(parallel.volume_parallel_map(body, vols, mesh))
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        vpm_equal = all(np.array_equal(a * np.uint8(255), b) for a, b in zip(vpm, want))
+        pos = float(np.mean(want[0] == 255))
+        log(f"multigpu {label}.segment_volumes of {N_VOLS} {vols[0].shape} volumes on the mesh "
+            f"(world {mesh.size}: {'one volume a rank' if mesh.size > 1 else 'the serial path'})"
+            f" in {wall!r} s: masks equal to the serial path's {equal}; volume_parallel_map of "
+            f"the serial body equal {vpm_equal}; positive share {pos!r}")
+        check(equal and vpm_equal and 0 < pos < 1, f"multigpu {label}: masks differ")
+
+
+def _mg_dcp(mesh, work: str, trainer: UNet2D, log) -> str:
+    """(e) the trained 2D state saved by the group to the DCP store; its
+    values for the restore."""
+    path = os.path.join(work, "mg_ckpt") + "/"
+    state = trainer.state.state_dict()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_auto(path, state, 1, [[1, 0.5]], mesh)
+    save_s = time.perf_counter() - t0
+    if mesh.rank == 0:
+        torch.save({"model": {k: v.cpu() for k, v in state["model"].items()},
+                    "optimizer": state["optimizer"], "step": state["step"]},
+                   os.path.join(work, "mg_saved.pt"))
+    log(f"multigpu DCP save of the trained train2d state by world {mesh.size}: {save_s!r} s")
+    return path
+
+
+def _mg_restore(work: str, path: str, log) -> None:
+    """(e) the DCP checkpoint restored by a fresh world-1 group: every value
+    equal to the saved one."""
+    mesh = parallel.init_distributed(device=_mg_device(0),
+                                     init_method=f"file://{os.path.join(work, 'mg_store1')}",
+                                     world_size=1, rank=0)
+    try:
+        restored, epoch, history = ckpt.load_checkpoint_auto(path, mesh)
+        saved = torch.load(os.path.join(work, "mg_saved.pt"), map_location="cpu")
+        model_eq = all(torch.equal(restored["model"][k].cpu(), v) for k, v in saved["model"].items())
+        opt_eq = all(torch.equal(restored["optimizer"]["state"][i][k].cpu(), v.cpu())
+                     for i, s in saved["optimizer"]["state"].items() for k, v in s.items())
+        log(f"multigpu DCP restore by a fresh world-1 group: epoch {epoch}, model equal "
+            f"{model_eq}, Adam state equal {opt_eq}, step {restored['step']!r}")
+        check(epoch == 1 and history == [[1, 0.5]] and model_eq and opt_eq
+              and int(restored["step"]) == saved["step"], "multigpu: the DCP restore differs")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mg_device(rank: int) -> torch.device:
+    return torch.device("cuda", rank) if DEV == "cuda" else torch.device(DEV)
+
+
+def _mg_rank(rank: int, world: int, work: str) -> None:
+    """One rank of phase 12: every sub-phase at world ``world`` over NCCL."""
+    mesh = parallel.init_distributed(device=_mg_device(rank),
+                                     init_method=f"file://{os.path.join(work, 'mg_store')}",
+                                     world_size=world, rank=rank)
+    log = functools.partial(print, flush=True) if rank == 0 else (lambda *a, **k: None)
+    check(mesh.backend == ("nccl" if DEV == "cuda" else "gloo"), f"multigpu: {mesh.backend}")
+    edt.launches = edt.mask_launches = 0
+    t0 = time.perf_counter()
+    trainer = _mg_unet2d(mesh, work, log)
+    _mg_unet3d(mesh, work, log)
+    _mg_ssl(mesh, work, log)
+    _mg_inference(mesh, work, log)
+    path = _mg_dcp(mesh, work, trainer, log)
+    launches = _edt_launches()
+    log(f"multigpu sub-phases at world {world} in {time.perf_counter() - t0!r} s; EDT launches "
+        f"{launches}")
+    check(not any(launches.values()), "multigpu: an EDT kernel ran on phase 12's paths")
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        _mg_restore(work, path, log)
+
+
+def phase_multigpu(work: str) -> None:
+    """Phase 12: one rank a card, spawned with ``torch.multiprocessing``,
+    joined through a file rendezvous in ``work``; a rank's failure raises
+    here."""
+    world = torch.cuda.device_count()
+    before = _edt_launches()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(_mg_rank, args=(world, work), nprocs=world,
+                                                join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < MG_WALL_S,
+                  f"multigpu: the group passed its {MG_WALL_S} s limit")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    print(f"multigpu: phase 12 at world {world} (NCCL) in {time.perf_counter() - t0!r} s, "
+          f"process start-up included")
+    check(_edt_launches() == before, "multigpu: the parent's EDT counters moved")
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -3240,6 +3624,9 @@ def main() -> None:
         gan_launches = phase_gan(work, data)
         torch.cuda.empty_cache()
         phase_ad(work, data)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multigpu_") as work:
+        phase_multigpu(work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

@@ -31,6 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ich_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal"): a normal cut at
 # two standard deviations, rescaled so that the kept part has std sqrt(1/fan_in)
@@ -114,10 +116,14 @@ def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) ->
     ``ra = torch_ra / k + (1 - m)(1 - 1/k) ra_old``, gives flax's update
     without a second pass over the activations. With ``update_stats``
     False (a checkpointed block's recompute) the update goes to copies and
-    the running averages stay as they are."""
+    the running averages stay as they are. With ``bn.mesh`` set
+    (:func:`sync_batch_norm`), train mode takes the global batch's
+    statistics (:func:`_sync_batch_norm`)."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             False, 0.0, bn.eps)
+    if bn.mesh is not None:
+        return _sync_batch_norm(bn, x)
     if not bn.update_stats:
         return F.batch_norm(x, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
                             bn.bias, True, bn.momentum, bn.eps)
@@ -131,6 +137,44 @@ def _batch_norm_forward(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) ->
     with torch.no_grad():
         bn.running_var.mul_((1.0 - m) * (1.0 - 1.0 / k)).add_(torch_ra, alpha=1.0 / k)
     return out
+
+
+def _sync_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Train mode over ``bn.mesh``: the per-channel sum, sum of squares and
+    count all-reduced with gradient (issued at any world size), the global
+    biased statistics ``E[x^2] - E[x]^2`` (flax's one-pass variance) for the
+    normalisation, and flax's running update ``ra = (1 - m) ra + m batch``
+    with the global mean and biased variance."""
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    xf = x.to(torch.float32)
+    local = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                       xf.new_full((1,), x.numel() / c)])
+    stats = all_reduce_sum(local, bn.mesh)
+    count = stats[2 * c]
+    mean = stats[:c] / count
+    var = torch.clamp(stats[c:2 * c] / count - mean * mean, min=0.0)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * scale
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    if bn.update_stats:
+        m = bn.momentum
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+def sync_batch_norm(net: nn.Module, mesh) -> nn.Module:
+    """Make every BatchNorm under ``net`` normalise with the statistics of
+    the global batch over ``mesh`` in train mode (``None``: the local
+    batch). The ``state_dict`` keys do not change. torch's
+    ``SyncBatchNorm`` is not used: it refuses CPU tensors and keeps an
+    unbiased running variance."""
+    for m in net.modules():
+        if isinstance(m, (BatchNorm2d, BatchNorm3d)):
+            m.mesh = mesh
+    return net
 
 
 @contextlib.contextmanager
@@ -152,11 +196,13 @@ def stats_frozen(net: nn.Module):
 
 class BatchNorm2d(nn.BatchNorm2d):
     update_stats = True
+    mesh = None  # set by sync_batch_norm
     forward = _batch_norm_forward
 
 
 class BatchNorm3d(nn.BatchNorm3d):
     update_stats = True
+    mesh = None  # set by sync_batch_norm
     forward = _batch_norm_forward
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ich_tpu_torch.ops.distance import distance_to_set
+from ich_tpu_torch.parallel.mesh import all_gather
 from ich_tpu_torch.utils.config import LOSSES
 
 
@@ -141,12 +142,23 @@ def _nt_xent(p: torch.Tensor, n: int, tau: float) -> torch.Tensor:
     return torch.mean(logz - pos)
 
 
-def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, tau: float = 0.5) -> torch.Tensor:
+def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, tau: float = 0.5,
+                  mesh=None) -> torch.Tensor:
     """SimCLR NT-Xent (reference ``LossFunctions.py:168-230``). z1, z2: (N,
     D) two views; each of the 2N embeddings has its counterpart view as
     positive and every other embedding in its denominator. The mean over
     the 2N anchors, the reference's ``CrossEntropyLoss(reduction='sum') /
-    (2N)``. The JAX package's all-gather over a mesh axis is not ported."""
+    (2N)``.
+
+    With a ``mesh`` (:class:`ich_tpu_torch.parallel.Mesh`), each rank's
+    rows are gathered over the mesh with gradient first, so that the
+    negatives span the global batch and every rank computes the global
+    loss. The gather's backward sums what every rank's loss sends to this
+    rank's rows; after the trainer's gradient mean over the ranks the
+    parameter gradient is the global loss's, so the loss is not divided
+    again."""
+    if mesh is not None:
+        z1, z2 = all_gather(torch.cat([z1, z2], dim=1), mesh).split(z1.shape[1], dim=1)
     return _nt_xent(torch.cat([z1, z2], dim=0), z1.shape[0], tau)
 
 

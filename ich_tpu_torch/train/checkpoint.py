@@ -7,6 +7,10 @@ of :mod:`ich_tpu.train.checkpoint`).
   model, optimizer, step, history}``, written atomically (``fsync``, then
   ``os.replace``); a missing file means a fresh start, the reference's
   resume (``UNet2D.py:109-121``).
+- ``save_checkpoint_auto`` / ``load_checkpoint_auto``: a path ending in a
+  separator takes the directory store of
+  :mod:`ich_tpu_torch.train.checkpoint_sharded` (every rank writes its
+  part), any other the single file (rank 0 writes);
 - ``transfer_weights``: the reference's key-intersection ``state_dict``
   update (``UNet2D.py:316-337``) with strict shapes, which raises when
   nothing matches;
@@ -20,6 +24,8 @@ import os
 from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import torch
+
+from ich_tpu_torch.parallel.mesh import barrier
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +63,38 @@ def load_checkpoint(path: str) -> Optional[Tuple[Dict[str, Any], int, list]]:
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state = {k: payload[k] for k in ("model", "optimizer", "step")}
     return state, int(payload["epoch"]), payload["history"]
+
+
+def is_sharded_path(path: str) -> bool:
+    """A path that ends in a separator selects the directory store of
+    :mod:`ich_tpu_torch.train.checkpoint_sharded`; any other path the
+    single file."""
+    return path.endswith("/") or path.endswith(os.sep)
+
+
+def save_checkpoint_auto(path: str, state: Dict[str, Any], epoch: int, history: list,
+                         mesh=None) -> None:
+    """The directory store (every rank of ``mesh`` writes) or the single
+    file (rank 0 writes, then every rank waits at a barrier)."""
+    if is_sharded_path(path):
+        from ich_tpu_torch.train import checkpoint_sharded
+
+        checkpoint_sharded.save_checkpoint_sharded(path, state, epoch, history, mesh)
+        return
+    if mesh is None or mesh.rank == 0:
+        save_checkpoint(path, state, epoch, history)
+    if mesh is not None:
+        barrier(mesh)
+
+
+def load_checkpoint_auto(path: str, mesh=None) -> Optional[Tuple[Dict[str, Any], int, list]]:
+    """(state, epoch, history) from either store, or None; every rank reads
+    the same checkpoint."""
+    if is_sharded_path(path):
+        from ich_tpu_torch.train import checkpoint_sharded
+
+        return checkpoint_sharded.load_checkpoint_sharded(path, mesh)
+    return load_checkpoint(path)
 
 
 def transfer_weights(

@@ -21,6 +21,7 @@ from typing import Any, Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ich_tpu_torch.parallel.mesh import all_reduce_mean
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.state import TrainState
 from ich_tpu_torch.utils import preemption
@@ -44,6 +45,7 @@ def fit(
     checkpoint_path: Optional[str] = None,
     checkpoint_freq: int = 10,
     name: str = "model",
+    mesh=None,
 ) -> Tuple[list, float]:
     """Run the training loop on ``state`` in place; returns (history,
     wall_time).
@@ -53,11 +55,19 @@ def fit(
     ``epoch_hook(state, epoch, mean_losses, epoch_time) -> history_row``
     owns validation and the epoch's log line; ``mean_losses`` is a numpy
     scalar or vector (None for an epoch without batches).
+
+    With a ``mesh`` (:class:`ich_tpu_torch.parallel.Mesh`) every rank runs
+    the loop: the epoch means are averaged over the ranks (each rank's step
+    loss is its slice's mean, so this is the global mean and every rank
+    logs the same history), the single-file checkpoint is written by rank 0
+    and the directory store by every rank (:func:`ich_tpu_torch.train.
+    checkpoint.save_checkpoint_auto`), every rank resumes from the same
+    checkpoint, and the preemption flag is agreed over the ranks.
     """
     preemption.install()  # so that the requested() poll below can fire
     n_epoch_finished, history = 0, []
     if checkpoint_path:
-        restored = ckpt.load_checkpoint(checkpoint_path)
+        restored = ckpt.load_checkpoint_auto(checkpoint_path, mesh)
         if restored is not None:
             saved_state, n_epoch_finished, history = restored
             state.load_state_dict(saved_state)
@@ -73,17 +83,24 @@ def fit(
         for b, batch in enumerate(batches_fn(epoch)):
             loss = train_step(state, batch, step_seed(seed, epoch, b))
             losses.append(torch.stack(loss) if isinstance(loss, (tuple, list)) else loss)
-        mean_losses = torch.stack(losses).mean(dim=0).cpu().numpy() if losses else None
+        mean_losses = None
+        if losses:
+            mean = torch.stack(losses).mean(dim=0)
+            if mesh is not None:
+                mean = all_reduce_mean(mean, mesh)
+            mean_losses = mean.cpu().numpy()
 
         history.append(epoch_hook(state, epoch, mean_losses, time.time() - epoch_start))
         saved = False
         if checkpoint_path and (epoch + 1) % checkpoint_freq == 0:
-            ckpt.save_checkpoint(checkpoint_path, state.state_dict(), epoch + 1, history)
+            ckpt.save_checkpoint_auto(checkpoint_path, state.state_dict(), epoch + 1, history,
+                                      mesh)
             logger.info("\tCheckpoint saved.")
             saved = True
-        if preemption.requested_global():
+        if preemption.requested_global(mesh):
             if checkpoint_path and not saved:
-                ckpt.save_checkpoint(checkpoint_path, state.state_dict(), epoch + 1, history)
+                ckpt.save_checkpoint_auto(checkpoint_path, state.state_dict(), epoch + 1,
+                                          history, mesh)
             logger.warning("Preemption requested: checkpointed after epoch %d, stopping.",
                            epoch + 1)
             break

@@ -16,8 +16,19 @@ the JAX package's ``_segvol_body``: rot90 -> window -> linear resize to the
 net's input -> the net over slice batches -> threshold at 0.5 -> nearest
 resize back (in the rotated frame) -> rot90 back -> uint8 x255.
 ``segment_volumes`` keeps up to ``pipeline_depth`` volumes queued on the
-device before it fetches the oldest result. The multi-device branch of
-``segment_volumes`` and data-parallel training are not ported.
+device before it fetches the oldest result.
+
+With ``mesh=`` (an :class:`ich_tpu_torch.parallel.Mesh`) the trainer is
+data-parallel as the JAX package's jit-sharded one is: every rank holds
+the replicated net, replays the same host plan and gathers each global
+batch on its device, draws the augmentation for the global batch from the
+step's generator and keeps its slice (so world N computes world 1's step
+with dropout off), normalises with the global batch's BatchNorm statistics
+and averages the gradients before Adam; ``batch_size`` is the global
+batch. Dropout draws from a generator seeded by the step's seed and the
+rank. ``evaluate`` runs on every rank and only rank 0 writes files; with
+more than one rank, ``segment_volumes`` of same-shaped volumes runs one
+volume per rank (:func:`ich_tpu_torch.parallel.volume_parallel_map`).
 """
 
 from __future__ import annotations
@@ -38,10 +49,12 @@ import torch.nn as nn
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.bmp import save_bmp_gray
 from ich_tpu_torch.data.core import SliceDataset2D, batch_indices
-from ich_tpu_torch.models.layers import Dropout
+from ich_tpu_torch.models.layers import Dropout, sync_batch_norm
 from ich_tpu_torch.ops import ct
 from ich_tpu_torch.ops import losses as _losses  # noqa: F401  (registers LOSSES)
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
+from ich_tpu_torch.parallel.mesh import replicate, shard_batch
+from ich_tpu_torch.parallel.sharded_inference import volume_parallel_map
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.train.state import TrainState, make_optimizer, make_schedule
@@ -86,6 +99,14 @@ def eval_mode(net: nn.Module):
         yield
     finally:
         net.train(was_training)
+
+
+def data_parallel(net: nn.Module, mesh) -> nn.Module:
+    """``net`` with its weights broadcast from rank 0 of ``mesh`` and its
+    BatchNorms synced over it; unchanged without a mesh."""
+    if mesh is not None:
+        sync_batch_norm(replicate(net, mesh), mesh)
+    return net
 
 
 def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> None:
@@ -137,9 +158,10 @@ def write_score_csvs(out_dir: str, cols: Dict[str, Sequence], slice_columns: Seq
 
 class UNet2D:
     """Train and evaluate a 2D segmentation network slice-wise; score (H,
-    W, Z) volumes. The constructor takes the JAX trainer's arguments but
-    ``mesh``; ``num_workers`` is accepted for the configs and unused (there
-    are no host workers)."""
+    W, Z) volumes. The constructor takes the JAX trainer's arguments;
+    ``num_workers`` is accepted for the configs and unused (there are no
+    host workers). With a ``mesh`` the trainer runs on the mesh's device
+    and ``device`` is not used."""
 
     _spatial_ndim = 2  # 3 in the volumetric subclass
 
@@ -160,9 +182,11 @@ class UNet2D:
         checkpoint_freq: int = 10,
         num_workers: int = 0,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
-        self.unet = unet.to(self.device).eval()
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.unet = data_parallel(unet.to(self.device).eval(), mesh)
         self.n_epoch = n_epoch
         self.batch_size = batch_size
         self.lr = lr
@@ -194,9 +218,15 @@ class UNet2D:
                 make_schedule(self.lr_scheduler, self.lr, steps_per_epoch,
                               **self.lr_scheduler_kwargs),
                 self.state.step if self.state is not None else 0,
+                self.mesh,
             )
             self._state_steps = steps_per_epoch
         return self.state
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh, or alone."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _to_device(self, arr) -> torch.Tensor:
         """A host array or CPU tensor on the device."""
@@ -225,6 +255,15 @@ class UNet2D:
         gen.manual_seed(seed)
         return gen
 
+    def _dropout_generator(self, gen: torch.Generator) -> torch.Generator:
+        """The step's dropout generator: ``gen`` itself, or under a mesh a
+        generator seeded by ``gen``'s seed and the rank, so that each
+        rank's slice draws its own masks."""
+        if self.mesh is None:
+            return gen
+        seq = np.random.SeedSequence((gen.initial_seed(), self.mesh.rank))
+        return self._generator(int(seq.generate_state(1, np.uint64)[0] >> 1))
+
     def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
         return self._step(state, *batch, self._generator(seed))
 
@@ -233,12 +272,16 @@ class UNet2D:
         """One step on a (B, *spatial[, 1]) batch: the channel axis added,
         augmentation and dropout drawn from ``gen``, the net in its current
         mode (channels moved first for it and back), the loss, backward and
-        Adam; returns the loss."""
+        Adam; returns the loss. Under a mesh the batch is the global one:
+        it is augmented whole, then this rank keeps its slice, and the loss
+        returned is the slice's (``fit`` averages it over the ranks)."""
         images, masks = _with_channels(self._spatial_ndim, images, masks)
         if self.augment_fn is not None:
             with torch.profiler.record_function("augment"):
                 images, masks = self.augment_fn(gen, images, masks)
-        _set_dropout_generator(state.model, gen)
+        if self.mesh is not None:
+            images, masks = shard_batch((images, masks), self.mesh)
+        _set_dropout_generator(state.model, self._dropout_generator(gen))
         pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
             loss = self.loss(pred, masks)
@@ -296,7 +339,7 @@ class UNet2D:
             history, wall = fit(
                 state, self._train_step, batches_fn, self.n_epoch, epoch_hook, seed=self.seed,
                 checkpoint_path=checkpoint_path, checkpoint_freq=self.checkpoint_freq,
-                name="U-Net 2.5D",
+                name="U-Net 2.5D", mesh=self.mesh,
             )
         finally:
             self.unet.eval()
@@ -354,9 +397,11 @@ class UNet2D:
                     vid, snb = int(dataset.vol_ids[idx[j]]), int(dataset.slice_nbrs[idx[j]])
                     pred_fn = "-"
                     if return_pred:
-                        os.makedirs(os.path.join(save_path, f"{vid}"), exist_ok=True)
                         pred_fn = f"{vid}/{snb}.bmp"
-                        save_bmp_gray(os.path.join(save_path, pred_fn), out[1][j] * np.uint8(255))
+                        if self._writes:
+                            os.makedirs(os.path.join(save_path, f"{vid}"), exist_ok=True)
+                            save_bmp_gray(os.path.join(save_path, pred_fn),
+                                          out[1][j] * np.uint8(255))
                     rows["volID"].append(vid)
                     rows["slice"].append(snb)
                     rows["label"].append(int(label[j]))
@@ -372,7 +417,7 @@ class UNet2D:
                 for k, v in rows.items()}
         cols["Dice"] = dice_from_counts(cols["TP"], cols["FP"], cols["FN"])
         sums = ("TP", "TN", "FP", "FN")
-        if save_path:
+        if save_path and self._writes:
             _, vol = write_score_csvs(save_path, cols, SLICE_COLUMNS, sums)
         else:
             _, vol = volume_table(cols, sums)
@@ -412,9 +457,9 @@ class UNet2D:
         pred = ct.resize_nearest(pred, (w, h, z_pad))
         return torch.rot90(pred, 1, dims=(1, 0))
 
-    def _enqueue(self, vol_data: np.ndarray, input_size, window) -> Tuple[torch.Tensor, int]:
+    def _enqueue(self, vol_data: np.ndarray, input_size, window) -> torch.Tensor:
         """Pad z to a multiple of the batch size, copy to the device and
-        queue the volume's work; returns the (H, W, Zp) device mask and z."""
+        queue the volume's work; returns the (H, W, Z) device mask."""
         vol_data = np.asarray(vol_data, dtype=np.float32)
         h, w, z = vol_data.shape
         z_pad = -(-z // self.batch_size) * self.batch_size
@@ -422,14 +467,38 @@ class UNet2D:
         vol[:, :, :z] = torch.from_numpy(vol_data)
         vol = self._to_device(vol)
         with torch.inference_mode():
-            return self._segment(vol, tuple(input_size), window), z
+            return self._segment(vol, tuple(input_size), window)[:, :, :z]
 
-    @staticmethod
-    def _finish(dev_pred: torch.Tensor, z: int, affine, save_fn) -> np.ndarray:
-        pred = dev_pred[:, :, :z].cpu().numpy() * np.uint8(255)
-        if save_fn:
+    def _finish(self, mask: np.ndarray, affine, save_fn) -> np.ndarray:
+        """The uint8 {0, 255} mask of a fetched {0, 1} mask, written as
+        NIfTI to ``save_fn`` (by rank 0 only on a mesh)."""
+        pred = mask * np.uint8(255)
+        if save_fn and self._writes:
             nifti.save(save_fn, pred, affine if affine is not None else np.eye(4))
         return pred
+
+    def _segment_all(self, enqueue: Callable[[np.ndarray], torch.Tensor], volumes, affines,
+                     save_fns, return_preds: bool, pipeline_depth: int):
+        """``segment_volumes`` of both trainers over ``enqueue(volume)``, the
+        {0, 1} device mask of one volume: up to ``pipeline_depth`` volumes
+        queued on the device before the oldest mask is fetched (``volumes``
+        consumed lazily); on a mesh of more than one rank, same-shaped
+        volumes one per rank (:func:`ich_tpu_torch.parallel.
+        volume_parallel_map`), every rank getting every mask."""
+        if self.mesh is not None and self.mesh.size > 1:
+            volumes = [np.asarray(v, dtype=np.float32) for v in volumes]
+        if (self.mesh is not None and self.mesh.size > 1 and len(volumes) > 1
+                and all(v.shape == volumes[0].shape for v in volumes)):
+            masks = volume_parallel_map(enqueue, volumes, self.mesh)
+        else:
+            masks = fetch_pipelined((enqueue(v) for v in volumes), depth=max(1, pipeline_depth))
+        preds: List[np.ndarray] = []
+        for i, m in enumerate(masks):
+            pred = self._finish(m, affines[i] if affines is not None else None,
+                                save_fns[i] if save_fns is not None else None)
+            if return_preds:
+                preds.append(pred)
+        return preds if return_preds else None
 
     def segment_volume(
         self,
@@ -442,8 +511,8 @@ class UNet2D:
     ):
         """Segment every slice of an (H, W, Z) volume. Returns a uint8
         {0, 255} volume if ``return_pred``; optionally writes NIfTI."""
-        dev_pred, z = self._enqueue(vol_data, input_size, window)
-        pred = self._finish(dev_pred, z, affine, save_fn)
+        pred = self._finish(self._enqueue(vol_data, input_size, window).cpu().numpy(), affine,
+                            save_fn)
         if return_pred:
             return pred
 
@@ -460,25 +529,12 @@ class UNet2D:
         """Pipelined multi-volume segmentation: up to ``pipeline_depth``
         volumes are queued on the device before the oldest result is
         fetched, so the device does not idle between volumes while its
-        memory stays bounded. ``volumes`` is consumed lazily."""
-        preds: List[np.ndarray] = []
-        pending = []
-
-        def drain_one():
-            i, dev_pred, z = pending.pop(0)
-            aff = affines[i] if affines is not None else None
-            fn = save_fns[i] if save_fns is not None else None
-            pred = self._finish(dev_pred, z, aff, fn)
-            if return_preds:
-                preds.append(pred)
-
-        for i, vol_data in enumerate(volumes):
-            pending.append((i, *self._enqueue(vol_data, input_size, window)))
-            if len(pending) >= max(1, pipeline_depth):
-                drain_one()
-        while pending:
-            drain_one()
-        return preds if return_preds else None
+        memory stays bounded. ``volumes`` is consumed lazily, except on a
+        mesh of more than one rank, where same-shaped volumes go one per
+        rank (:func:`ich_tpu_torch.parallel.volume_parallel_map`) and every
+        rank returns every mask; only rank 0 writes files."""
+        return self._segment_all(lambda v: self._enqueue(v, input_size, window), volumes,
+                                 affines, save_fns, return_preds, pipeline_depth)
 
     # -- weights --------------------------------------------------------------
 

@@ -15,8 +15,16 @@ by Gaussian-blended sliding-window inference (:mod:`ich_tpu_torch.ops.
 sliding_window`) with the net in eval mode, and thresholded; only the uint8
 mask, or for ``evaluate`` four confusion counts, come back.
 ``segment_volumes`` and ``evaluate`` keep two volumes queued on the device
-before they fetch the oldest result. The multi-device branch of
-``segment_volumes`` and data-parallel training are not ported.
+before they fetch the oldest result.
+
+With ``mesh=`` the trainer is data-parallel as :class:`UNet2D` is: every
+rank draws the global batch's patches from the same seeded draws (both
+samplers), augments them whole and keeps its slice; the GroupNorm net
+needs no statistics sync. With more than one rank, ``segment_volumes`` of
+same-shaped volumes runs one volume per rank through
+:func:`ich_tpu_torch.parallel.volume_parallel_map`, each through the
+serial path's window, sliding window and threshold, and gathers the uint8
+masks.
 """
 
 from __future__ import annotations
@@ -25,13 +33,12 @@ import logging
 import os
 import time
 from datetime import timedelta
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data import patch_sampler as ps
 from ich_tpu_torch.data.core import VolumeDataset3D
 from ich_tpu_torch.ops import ct
@@ -229,7 +236,7 @@ class UNet3D(UNet2D):
             history, wall = fit(
                 state, run_step, batches_fn, self.n_epoch, epoch_hook, seed=self.seed,
                 checkpoint_path=checkpoint_path, checkpoint_freq=self.checkpoint_freq,
-                name="3D U-Net (patch-based)",
+                name="3D U-Net (patch-based)", mesh=self.mesh,
             )
         finally:
             self.unet.eval()
@@ -263,13 +270,6 @@ class UNet3D(UNet2D):
                 batch_size=self.sw_batch_size)
             return (probs[..., 0] >= threshold).to(torch.uint8)
 
-    @staticmethod
-    def _finish(dev_pred: torch.Tensor, affine, save_fn) -> np.ndarray:
-        pred = dev_pred.cpu().numpy() * np.uint8(255)
-        if save_fn:
-            nifti.save(save_fn, pred, affine if affine is not None else np.eye(4))
-        return pred
-
     # -- inference ----------------------------------------------------------------
 
     def segment_volume(
@@ -285,7 +285,8 @@ class UNet3D(UNet2D):
         """Window on the device, then sliding-window segmentation of a raw
         (D, H, W) volume. Returns the uint8 {0, 255} mask if
         ``return_pred``; optionally writes it as NIfTI."""
-        pred = self._finish(self._enqueue(vol_data, window, threshold), affine, save_fn)
+        pred = self._finish(self._enqueue(vol_data, window, threshold).cpu().numpy(), affine,
+                            save_fn)
         if return_pred:
             return pred
 
@@ -306,25 +307,11 @@ class UNet3D(UNet2D):
         volumes are queued on the device before the oldest mask is fetched
         (a volume's input, patch stack and probabilities take some 0.6 GB at
         64x512x512, so the queue is bounded). ``volumes`` is consumed
-        lazily."""
-        preds: List[np.ndarray] = []
-        pending = []
-
-        def drain_one():
-            i, dev_pred = pending.pop(0)
-            aff = affines[i] if affines is not None else None
-            fn = save_fns[i] if save_fns is not None else None
-            pred = self._finish(dev_pred, aff, fn)
-            if return_preds:
-                preds.append(pred)
-
-        for i, vol_data in enumerate(volumes):
-            pending.append((i, self._enqueue(vol_data, window, threshold)))
-            if len(pending) >= max(1, pipeline_depth):
-                drain_one()
-        while pending:
-            drain_one()
-        return preds if return_preds else None
+        lazily, except on a mesh of more than one rank, where same-shaped
+        volumes go one per rank and every rank returns every mask; only
+        rank 0 writes files."""
+        return self._segment_all(lambda v: self._enqueue(v, window, threshold), volumes,
+                                 affines, save_fns, return_preds, pipeline_depth)
 
     def predict_volume(self, vol: np.ndarray, threshold: float = 0.5) -> np.ndarray:
         """(D, H, W) preprocessed volume -> uint8 {0, 1} mask."""
@@ -366,7 +353,7 @@ class UNet3D(UNet2D):
             "Dice": dice_from_counts(tp, fp, fn),
             "IoU": iou_from_counts(tp, fp, fn),
         }
-        if save_path:
+        if save_path and self._writes:
             os.makedirs(save_path, exist_ok=True)
             write_csv(os.path.join(save_path, "volume_prediction_scores.csv"),
                       ("",) + CSV_COLUMNS,

@@ -30,8 +30,16 @@ resume.
 ``evaluate_representation`` embeds the bottleneck features
 (:meth:`bottleneck_features`, on the device: the bottleneck average-pooled
 to 4x4 and flattened channels last, as the JAX package does) in 2D with
-scikit-learn's t-SNE, imported inside the method. The data-parallel mesh
-and the all-gather of negatives are not ported.
+scikit-learn's t-SNE, imported inside the method.
+
+With ``mesh=`` the trainers are data-parallel as
+:class:`ich_tpu_torch.train.segmentation2d.UNet2D` is (``batch_size`` is
+the global batch): the patch swap, the views and the region cells are
+drawn for the global batch and each rank keeps its slice, each forward
+syncs its BatchNorm statistics over the ranks, the global contrastive loss
+gathers the embeddings of every rank (:func:`ich_tpu_torch.ops.losses.
+info_nce_loss`), and the gradients of the parameters that are not frozen
+are averaged before Adam.
 """
 
 from __future__ import annotations
@@ -47,12 +55,19 @@ import torch.nn as nn
 
 from ich_tpu_torch.data.core import batch_indices
 from ich_tpu_torch.ops import transforms as T
-from ich_tpu_torch.ops.losses import info_nce_loss, local_info_nce_loss, mse_loss
+from ich_tpu_torch.ops.losses import (
+    info_nce_loss,
+    local_info_nce_loss,
+    mse_loss,
+    sample_region_cells,
+)
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.loop import fit
+from ich_tpu_torch.parallel.mesh import shard_batch
 from ich_tpu_torch.train.segmentation2d import (
     UNet2D,
     _set_dropout_generator,
+    data_parallel,
     eval_mode,
     resolve_device,
 )
@@ -70,8 +85,9 @@ def _nhwc(images: torch.Tensor) -> torch.Tensor:
 
 class _SSLBase:
     """State, batches, weights and outputs shared by the SSL trainers. The
-    constructor takes the JAX trainer's arguments but ``mesh``;
-    ``num_workers`` is accepted for the configs and unused."""
+    constructor takes the JAX trainer's arguments; ``num_workers`` is
+    accepted for the configs and unused. With a ``mesh`` the trainer runs
+    on the mesh's device and ``device`` is not used."""
 
     name = "SSL network"
 
@@ -89,9 +105,11 @@ class _SSLBase:
         num_workers: int = 0,
         device: str | torch.device = "cuda",
         print_progress: bool = False,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
-        self.net = net.to(self.device).eval()
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.net = data_parallel(net.to(self.device).eval(), mesh)
         self.n_epoch = n_epoch
         self.batch_size = batch_size
         self.lr = lr
@@ -124,6 +142,7 @@ class _SSLBase:
                 make_schedule(self.lr_scheduler, self.lr, steps_per_epoch,
                               **self.lr_scheduler_kwargs),
                 self.state.step if self.state is not None else 0,
+                self.mesh,
             )
             self._state_steps = steps_per_epoch
         return self.state
@@ -161,9 +180,17 @@ class _SSLBase:
 
     # -- training ---------------------------------------------------------------
 
-    # the supervised trainer's helpers, which read only ``self.device``
+    # the supervised trainer's helpers, which read only ``self.device`` and
+    # ``self.mesh``
     _generator = UNet2D._generator
+    _dropout_generator = UNet2D._dropout_generator
     _to_device = UNet2D._to_device
+    _writes = UNet2D._writes
+
+    def _local(self, *xs: torch.Tensor):
+        """This rank's slices of global-batch tensors (all of them without
+        a mesh)."""
+        return xs if self.mesh is None else shard_batch(xs, self.mesh)
 
     def _batches(self, images, plan: List[np.ndarray]):
         """The images of each index row of ``plan`` on the device: gathered
@@ -237,7 +264,7 @@ class _SSLBase:
             history, wall = fit(
                 state, self._train_step, batches_fn, self.n_epoch, epoch_hook, seed=self.seed,
                 checkpoint_path=checkpoint_path, checkpoint_freq=self.checkpoint_freq,
-                name=self.name,
+                name=self.name, mesh=self.mesh,
             )
         finally:
             self.net.eval()
@@ -308,7 +335,8 @@ class ContextRestoration(_SSLBase):
         images = _nhwc(images)
         with torch.profiler.record_function("corrupt"):
             corrupted = self.corrupt(gen, images)
-        _set_dropout_generator(state.model, gen)
+        corrupted, images = self._local(corrupted, images)
+        _set_dropout_generator(state.model, self._dropout_generator(gen))
         with torch.profiler.record_function("net"):
             recon = state.model(corrupted.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
@@ -343,7 +371,8 @@ class Contrastive(_SSLBase):
         with torch.profiler.record_function("views"):
             v1 = self.aug(gen, images)
             v2 = self.aug(gen, images)
-        _set_dropout_generator(state.model, gen)
+        v1, v2 = self._local(v1, v2)
+        _set_dropout_generator(state.model, self._dropout_generator(gen))
         with torch.profiler.record_function("net"):
             o1 = state.model(v1.movedim(-1, 1))
             o2 = state.model(v2.movedim(-1, 1))
@@ -352,10 +381,16 @@ class Contrastive(_SSLBase):
                 # L2-normalised embeddings (reference Contrastive.py:142-144)
                 z1 = o1 / torch.clamp(torch.linalg.vector_norm(o1, dim=1, keepdim=True), min=1e-8)
                 z2 = o2 / torch.clamp(torch.linalg.vector_norm(o2, dim=1, keepdim=True), min=1e-8)
-                loss = info_nce_loss(z1, z2, tau=self.tau)
+                loss = info_nce_loss(z1, z2, tau=self.tau, mesh=self.mesh)
             else:
-                loss = local_info_nce_loss(o1.movedim(1, -1), o2.movedim(1, -1), gen,
-                                           tau=self.tau, K=self.K, n_region=self.n_region)
+                f1, f2 = o1.movedim(1, -1), o2.movedim(1, -1)
+                cells = None
+                if self.mesh is not None:  # drawn for the global batch, then sliced
+                    b, h, w, _ = f1.shape
+                    cells, = self._local(sample_region_cells(
+                        gen, b * self.mesh.size, (h // self.K) * (w // self.K), self.n_region))
+                loss = local_info_nce_loss(f1, f2, gen, tau=self.tau, K=self.K,
+                                           n_region=self.n_region, cells=cells)
         return self._update(state, loss)
 
 

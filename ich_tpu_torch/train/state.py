@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ich_tpu_torch.parallel.mesh import average_gradients
 from ich_tpu_torch.utils.config import SCHEDULES
 
 
@@ -99,14 +100,22 @@ class TrainState:
     """The network, its optimizer, the schedule and the number of steps
     taken. ``apply_gradients`` sets the rate of step ``step`` (the
     schedule's value at the count of earlier steps, as optax's
-    ``scale_by_learning_rate``) and steps the optimizer."""
+    ``scale_by_learning_rate``) and steps the optimizer. With a ``mesh``
+    (:class:`ich_tpu_torch.parallel.Mesh`) the optimizer's gradients are
+    first averaged over the ranks, so that every replica takes the same
+    Adam step, the global batch's."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    mesh: Any = None
 
     def apply_gradients(self) -> None:
+        if self.mesh is not None:
+            with torch.profiler.record_function("grad_all_reduce"):
+                average_gradients(
+                    (p for g in self.optimizer.param_groups for p in g["params"]), self.mesh)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

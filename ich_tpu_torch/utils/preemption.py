@@ -50,11 +50,21 @@ def requested() -> bool:
     return _requested.is_set()
 
 
-def requested_global() -> bool:
-    """The preemption flag agreed across processes. The port trains on one
-    process, so this is :func:`requested`; agreement across processes comes
-    with multi-GPU training."""
-    return _requested.is_set()
+def requested_global(mesh=None) -> bool:
+    """The preemption flag agreed across the ranks of ``mesh`` (an
+    :class:`ich_tpu_torch.parallel.Mesh`; ``None``: this process's flag). A
+    SIGTERM lands on one process: every rank must take the checkpoint-and-
+    stop branch at the same epoch boundary, or the ranks that go on into
+    the next epoch's collectives wait for the ones that stopped. The flag
+    is all-reduced with MAX."""
+    if mesh is None:
+        return _requested.is_set()
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([float(_requested.is_set())], device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.group)
+    return bool(flag.item() > 0)
 
 
 def reset() -> None:

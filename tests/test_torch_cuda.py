@@ -671,3 +671,42 @@ def test_ellipse_render_and_upsample_card_match_cpu(card):
     s = torch.randn(4, 1, 32, 32, generator=torch.Generator().manual_seed(9))
     a, b = receptive_upsample(s, (256, 256)), receptive_upsample(s.cuda(), (256, 256)).cpu()
     assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_nccl_world1_step_matches_plain_step(card, tmp_path):
+    """A world-1 NCCL group on the card: three ``UNet2D(mesh=)`` steps
+    (synced BatchNorm, the gradient all-reduce) against the trainer without
+    a mesh, BatchNorm net, batch 4 of 64^2, dropout and augmentation off:
+    losses within rtol 1e-5; the weights after step 1 within Adam's bound
+    and 98% within lr / 10, the running statistics after it within 1e-4
+    (only the normalisation's arithmetic differs)."""
+    import torch.distributed as dist
+
+    from ich_tpu_torch import parallel
+
+    lr = 1e-3
+    mesh = parallel.init_distributed(device="cuda:0", init_method=f"file://{tmp_path}/store",
+                                     world_size=1, rank=0)
+    try:
+        assert mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0)
+        ds = synthetic_ich_slices(n_slices=4, size=64, n_volumes=1, seed=7, positive_frac=1.0)
+        x, y = torch.from_numpy(ds.images).cuda(), torch.from_numpy(ds.masks).cuda()
+        runs = []
+        for m in (None, mesh):
+            torch.manual_seed(0)
+            net = UNet(depth=4, top_filter=8, p_dropout=0.0, norm="batch")
+            t = UNet2D(net, batch_size=4, lr=lr, device="cuda", mesh=m)
+            state = t._train_state(1)
+            net.train()
+            losses = [float(t._step(state, x, y, t._generator(0)))]
+            step1 = torch.cat([p.detach().flatten().cpu() for p in net.parameters()])
+            stats = torch.cat([b.flatten().cpu() for b in net.buffers() if b.is_floating_point()])
+            losses += [float(t._step(state, x, y, t._generator(s))) for s in (1, 2)]
+            runs.append((losses, step1, stats))
+        (lp, pp, bp), (lm, pm, bm) = runs
+        np.testing.assert_allclose(lm, lp, rtol=1e-5)
+        d = (pp - pm).abs()
+        assert float(d.max()) <= 2 * lr and float((d <= lr / 10).float().mean()) >= 0.98
+        torch.testing.assert_close(bm, bp, rtol=1e-4, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

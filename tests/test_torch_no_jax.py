@@ -45,7 +45,9 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.models.fcdd", "ich_tpu_torch.train.ae_trainer",
                  "ich_tpu_torch.train.fcdd_trainer", "ich_tpu_torch.experiments.ae_ad",
                  "ich_tpu_torch.experiments.fcdd",
-                 "ich_tpu_torch.experiments.attention_unet2d"):
+                 "ich_tpu_torch.experiments.attention_unet2d",
+                 "ich_tpu_torch.parallel.mesh", "ich_tpu_torch.parallel.sharded_inference",
+                 "ich_tpu_torch.train.checkpoint_sharded"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()
