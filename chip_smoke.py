@@ -195,8 +195,11 @@ its last line:
    width, held the same way; (d) the headline volume (64x512x512, 64^3
    patches at overlap 0.5, the d4f16 GroupNorm bf16 net, 128 patches a
    call) through ``sliding_window_inference_sharded`` against the serial
-   sliding window away from the global H edges, an identity net within
-   1e-4 of the input, and ``UNet2D.segment_volumes`` /
+   sliding window away from the global H edges, the serial sliding window
+   at batch 128 against batch 75 and against itself (batch size alone;
+   printed), at world > 1 the disagreeing mask voxels by distance to the
+   nearest slab boundary, an identity net within 1e-4 of the input, and
+   ``UNet2D.segment_volumes`` /
    ``UNet3D.segment_volumes`` of three 512x512x40 and three 64x512x512
    volumes on the mesh and ``volume_parallel_map`` of the serial body, the
    masks equal to the serial path's; (e) the trained 2D state saved by the
@@ -207,7 +210,30 @@ its last line:
    profile of one warm data-parallel ``train2d_bs16`` step, and the halo
    path's seconds a volume beside the serial sliding window's. The
    EDT launches over phase 12 read 0; a rank's failure raises in the
-   parent.
+   parent;
+13. the host-side remainder on a public-layout dataset: (a) three
+   PhysioNet-layout NIfTIs of 512x512x16 (``synthetic_ich_volume``; CTs,
+   lesion masks, brain masks) and a ``Patient_demographics.csv`` without
+   the second patient, through ``python -m
+   ich_tpu_torch.experiments.data_preparation gen-2d-seg`` and
+   ``gen-2d-brain`` with pandas, PIL, scikit-learn and click unimportable:
+   mask BMPs for the positive slices only, ``patient_info.csv`` merged as
+   pandas' left merge, and ``load_segich_2d`` of the tree equal to the
+   windowed NIfTIs; (b) the supervised2d CLI on that tree at
+   ``configs/unet2d.json``'s width, 2 folds x 1 epoch, its analysis tables
+   (``postprocessing/analyse_exp.supervised_tables``) held against a
+   recomputation from the fold CSVs, the overlay triplets at 512^2, and
+   ``results_overview.pdf`` (2 pages) where matplotlib is installed; (c) a
+   CQ500 root of 2 series of 24 DICOMs of 512^2 through ``qure-extract``
+   and one series through ``dicom-to-nifti`` (the same bytes), then
+   ``segment_brain`` of the extracted volumes on the card with (b)'s fold-1
+   weights (uint8 masks in {0, 255}); (d) the arrays of each ``figures``
+   command (the window on the card against the CPU within 1e-6), and each
+   command's file where matplotlib is installed; (e) the native loader
+   built with g++, its decodes of (a)'s CTs (and gzip copies) equal to
+   ``nifti.load``, ``window_resize_batch`` within 1e-4 of the window and
+   resize on the card, and both decoders' ms per volume. The EDT launches
+   over phase 13 read 0.
 
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after (the training, SSL, phase 9, phase 11 and phase 12 paths
@@ -244,12 +270,19 @@ from ich_tpu_torch.data.bmp import read_bmp, save_bmp_gray
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
 from ich_tpu_torch.data.datasets import load_rsna_slices, load_segich_3d, write_rsna_slice_info
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
-from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_rsna_tree, write_segich_tree
+from ich_tpu_torch.data.synthetic import (
+    synthetic_ich_slices,
+    synthetic_ich_volume,
+    write_cq500_tree,
+    write_rsna_tree,
+    write_segich_tree,
+)
 from ich_tpu_torch.data.png import read_png_gray
 from ich_tpu_torch.data.segich import load_segich_2d
+from ich_tpu_torch.data.table import pandas_float
 from ich_tpu_torch.experiments import ad_inpainting, ae_ad, attention_unet2d, fcdd, inpainting_gan
 from ich_tpu_torch.experiments import binary_resnet, brain_extraction, pred_on_brain, segment_brain
-from ich_tpu_torch.experiments import supervised2d
+from ich_tpu_torch.experiments import data_preparation, figures, supervised2d
 from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
 from ich_tpu_torch.experiments.pretrain_finetune import (
     _seeded,
@@ -273,6 +306,7 @@ from ich_tpu_torch.experiments.supervised3d import (
     run_supervised_3d,
     split_test,
 )
+from ich_tpu_torch import native
 from ich_tpu_torch.kernels import _build
 from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG, receptive_upsample
 from ich_tpu_torch.models.inpainting import GatedGenerator, PatchDiscriminator, SAGatedGenerator
@@ -295,6 +329,7 @@ from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmen
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
+from ich_tpu_torch.postprocessing import analyse_exp
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.gan import SNPatchGAN
@@ -365,13 +400,21 @@ BRAIN_TREE = (6, 8, 512)  # the brain-extraction tree: patients, slices, side
 BRAIN_VOLS = 2  # 512x512x40 NIfTIs for segment_brain
 CLS_HOLD_BATCH = 2
 CLS_TIMED = (("cls_encoder_bs64", "binary", 64), ("cls_resnet18_bs64", "resnet18", 64))
-NOT_ON_THE_CARD = ("pandas", "PIL", "sklearn")  # the port runs without them
+# the port runs without them (matplotlib and imageio draw the reports and
+# figures, which are skipped without them; matplotlib needs PIL)
+NOT_ON_THE_CARD = ("pandas", "PIL", "sklearn", "matplotlib", "imageio")
 # phase 10: configs/inpainting_gan.json at its width on phase 8's RSNA slices
 GAN_CFG = "configs/inpainting_gan.json"
 GAN_EPOCHS = 2  # the config: 50
 GAN_HOLD_BATCH = 2  # the card/CPU hold (the CPU's step time)
 GAN_TIMED = (("gan_sa_bs16", True, 16), ("gan_ctx_bs16", False, 16))
 AD_TREE = (2, 3, 512)  # the detector's SegICH 2D tree: patients, slices each, side
+# phase 13: a public-layout dataset (PhysioNet's NIfTI release: patients, side,
+# slices; 512^2 as the release, 16 slices of its ~34) to masks on the card
+PREP_NIFTI = (3, 512, 16)
+PREP_IDS = (49, 50, 51)  # the release's file names: 049.nii, ...
+CQ500_TREE = (2, 24, 512)  # qureAI CQ500 DICOM series: patients, slices, side
+NATIVE_ROUNDS = 3
 DEV = "cuda"
 
 
@@ -471,13 +514,18 @@ def init_net(net: torch.nn.Module, gen: torch.Generator) -> None:
 
 # -- phases ---------------------------------------------------------------------
 
+def card_name_and_power() -> str:
+    """``nvidia-smi``'s name and power limit of the cards."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name_and_power()
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s))")
     print(smi)
@@ -3462,6 +3510,19 @@ def _mg_inference(mesh, work: str, log) -> None:
         halo() if name == "halo" else _probs(t3, vols3d[0])
         torch.cuda.synchronize()
         s[name].append(time.perf_counter() - t0)
+    # batch size alone, on the serial path: the halo path at world 4 runs one
+    # call of 75 patches a rank where the serial path runs 128 and 97; a
+    # second run at 128 shows whether one batch size repeats itself
+    with torch.inference_mode():
+        by_batch = [sw.sliding_window_inference(t3.unet, x, patch_size=patch, overlap=0.5,
+                                                batch_size=b)[..., 0] for b in (128, 75, 128)]
+    agree_b = _agreement(by_batch[0] >= 0.5, by_batch[1] >= 0.5)[0]
+    err_b = float((by_batch[0] - by_batch[1]).abs().max())
+    err_rep = float((by_batch[0] - by_batch[2]).abs().max())
+    log(f"multigpu serial sliding_window_inference of {tuple(x.shape)}, the same bf16 net, "
+        f"batch 128 against batch 75: mask agreement {agree_b!r}, probability max |diff| "
+        f"{err_b!r}; batch 128 run twice: max |diff| {err_rep!r}")
+    del by_batch
     ident = parallel.sliding_window_inference_sharded(
         lambda p: p, x, mesh, patch_size=patch, overlap=0.5, batch_size=128)
     check(probs.shape == x.shape + (1,) and bool(torch.isfinite(probs).all()),
@@ -3470,7 +3531,12 @@ def _mg_inference(mesh, work: str, log) -> None:
     # whole stride: away from the global edges along H the voxels blend the
     # same patches, each run by the bf16 net in other batches (cuDNN may take
     # other algorithms); a wrong halo would differ by far more than bf16's
-    # rounding near every slab boundary
+    # rounding near every slab boundary. Batch size alone moves the serial
+    # path as much as world 4 moved the halo path: on one H100 the serial
+    # sliding window at batch 75 against 128 agreed on 99.973% of the mask
+    # voxels, probabilities within 8.35e-3, while batch 128 repeated itself
+    # exactly (world 4: 99.971%, 8.4e-3). So the check is bf16's 2e-2 and
+    # 99.9% of the masks, and the comparison above prints the serial spread.
     inner = slice(PATCH3D, x.shape[1] - PATCH3D)
     agree = _agreement(probs[:, inner, :, 0] >= 0.5, ref[:, inner] >= 0.5)[0]
     err = float((probs[:, inner, :, 0] - ref[:, inner]).abs().max())
@@ -3599,6 +3665,350 @@ def phase_multigpu(work: str) -> None:
     check(_edt_launches() == before, "multigpu: the parent's EDT counters moved")
 
 
+# -- phase 13: the host-side remainder on a public-layout dataset --------------------
+
+NOT_ON_THE_CARD_PREP = NOT_ON_THE_CARD + ("click",)  # the JAX scripts' CLI library
+
+
+def _matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _physionet_demographics(fn: str, ids: list) -> None:
+    """``Patient_demographics.csv`` in PhysioNet's layout (a title row, a
+    row of subtype names under three empty cells, a row per patient, two
+    footer rows) with ``ids`` only."""
+    rows = ['Patient Number,"Age\n(years)",Gender,Hemorrhage type,,,,,Fracture',
+            ",,,Intraventricular,Intraparenchymal,Subarachnoid,Epidural,Subdural,"]
+    rows += [f"{pid},{30 + 11 * i},{('Male', 'Female')[i % 2]},0,1,0,0,0,0"
+             for i, pid in enumerate(ids)]
+    rows += ["Total,,,0,2,0,0,0,0", ",,,,,,,,"]
+    with open(fn, "w", newline="") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def load_prep_cfg(work: str) -> dict:
+    """``configs/unet2d.json`` at its width, cut to 2 folds of 1 epoch, on
+    (a)'s tree."""
+    with open(TRAIN_CFG) as f:
+        cfg = json.load(f)
+    cfg["exp_name"] = "prep"
+    cfg["path"] = {"DATA": os.path.join(work, "seg2d"), "OUTPUT": os.path.join(work, "out")}
+    cfg["split"]["n_fold"] = 2
+    cfg["train"]["n_epoch"] = 1
+    return cfg
+
+
+def _prep_trees(work: str) -> dict:
+    """(a) the NIfTI release (CTs, lesion masks, brain masks, demographics)
+    to SegICH 2D trees through ``data_preparation``'s CLI, with pandas, PIL,
+    scikit-learn and click unimportable; the masks and the windowed slices
+    checked."""
+    n_pat, side, depth = PREP_NIFTI
+    src = os.path.join(work, "nifti")
+    for sub in ("ct_scans", "masks", "brain_masks"):
+        os.makedirs(os.path.join(src, sub))
+    vols = {}
+    for pid in PREP_IDS[:n_pat]:
+        vol, mask = synthetic_ich_volume(size=side, depth=depth, seed=pid)
+        brain = (vol > -40).astype(np.uint8)
+        brain[:, :, :2] = 0  # slices below the brain
+        name = f"{pid:03d}.nii"
+        nifti.save(os.path.join(src, "ct_scans", name), vol, np.diag([0.45, 0.45, 5.0, 1.0]))
+        nifti.save(os.path.join(src, "masks", name), mask.astype(np.uint8))
+        nifti.save(os.path.join(src, "brain_masks", name), brain)
+        vols[pid] = (vol, mask, brain)
+    demo = os.path.join(work, "Patient_demographics.csv")
+    _physionet_demographics(demo, [PREP_IDS[0], PREP_IDS[2]])  # the second has no row
+    t0 = time.perf_counter()
+    with _unimportable(NOT_ON_THE_CARD_PREP):
+        data_preparation.main(["gen-2d-seg", "--data-dir", src, "--out-dir",
+                               os.path.join(work, "seg2d"), "--demographics-csv", demo])
+        data_preparation.main(["gen-2d-brain", "--data-dir", src, "--out-dir",
+                               os.path.join(work, "brain2d")])
+        loaded = [m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD_PREP
+                  and sys.modules[m] is not None]
+    wall = time.perf_counter() - t0
+    check(not loaded, f"prep: data_preparation imported {loaded}")
+    for tree, which in (("seg2d", 1), ("brain2d", 2)):
+        with open(os.path.join(work, tree, "ct_info.csv"), newline="") as f:
+            rows = list(csv.reader(f))[1:]
+        check(len(rows) == n_pat * depth, f"prep {tree}: {len(rows)} slice rows")
+        for r in rows:
+            pid, z, pos = int(r[1]), int(r[2]), int(r[5])
+            want_pos = int(np.rot90(vols[pid][which], axes=(0, 1))[:, :, z].max() > 0)
+            has_file = os.path.exists(os.path.join(work, tree, f"{pid}/mask/{z}.bmp"))
+            check(pos == want_pos and has_file == bool(pos) and (r[4] == "-") == (not pos),
+                  f"prep {tree}: patient {pid} slice {z}: label {pos}, mask file {has_file}")
+    with open(os.path.join(work, "seg2d", "patient_info.csv")) as f:
+        patients = f.read()
+    want = ",PatientNumber,Hemorrhage,Age,Gender\n" + "".join(
+        f"{i},{pid},1,{age},{gender}\n" for i, (pid, age, gender) in enumerate(
+            [(PREP_IDS[0], "30.0", "Male"), (PREP_IDS[1], "", ""),
+             (PREP_IDS[2], "41.0", "Female")][:n_pat]))
+    check(patients == want, f"prep: patient_info.csv is\n{patients}")
+    ds = load_segich_2d(os.path.join(work, "seg2d"), window=WINDOW, size=side)
+    want_img = np.concatenate([np.clip((np.rot90(vols[p][0], axes=(0, 1)).astype(np.int32)
+                                        - (WINDOW[0] - WINDOW[1] / 2)) / WINDOW[1], 0, 1)
+                               .transpose(2, 0, 1) for p in PREP_IDS[:n_pat]])
+    want_msk = np.concatenate([np.rot90(vols[p][1], axes=(0, 1)).transpose(2, 0, 1) > 0
+                               for p in PREP_IDS[:n_pat]])
+    err = float(np.abs(np.asarray(ds.images) - want_img).max())
+    n_pos = int(want_msk.reshape(len(want_msk), -1).any(1).sum())
+    print(f"prep (a) gen-2d-seg and gen-2d-brain on {n_pat} NIfTIs of {side}x{side}x{depth} "
+          f"in {wall!r} s with {', '.join(NOT_ON_THE_CARD_PREP)} unimportable: {len(ds)} "
+          f"slices, {n_pos} with a lesion (mask BMPs for those only); load_segich_2d of the "
+          f"tree against the windowed NIfTIs: max |diff| {err!r} (tolerance 1e-6), masks equal "
+          f"{bool(np.array_equal(np.asarray(ds.masks) > 0, want_msk))}; patient_info.csv "
+          f"merged as pandas' left merge (the patient without demographics empty, Age float)")
+    check(err <= 1e-6 and np.array_equal(np.asarray(ds.masks) > 0, want_msk),
+          "prep: the tree does not load as the windowed NIfTIs")
+    return vols
+
+
+def _prep_report(work: str) -> str:
+    """(b) the supervised2d CLI on (a)'s tree at ``configs/unet2d.json``'s
+    width on the card; the analysis tables held against a recomputation
+    from the fold CSVs; returns the experiment dir."""
+    cfg = load_prep_cfg(work)
+    fn = _write_cfg(cfg, os.path.join(work, "unet2d_prep.json"))
+    t0 = time.perf_counter()
+    with _unimportable(NOT_ON_THE_CARD):
+        out = supervised2d.main([fn, "--device", DEV])
+    wall = time.perf_counter() - t0
+    n_fold = cfg["split"]["n_fold"]
+    tab = analyse_exp.supervised_tables(out, n_fold)
+    # the CSVs read again with the csv module; floats as pandas reads them
+    # (not always correctly rounded: ``table.pandas_float``)
+    num = pandas_float
+    with open(os.path.join(out, "all_volume_prediction.csv"), newline="") as f:
+        vol_rows = list(csv.DictReader(f))
+    cm = np.asarray([[num(r[c]) for c in analyse_exp.CM_COLUMNS] for r in vol_rows])
+    lab = np.asarray([int(r["label"]) for r in vol_rows])
+    slices = []
+    for k in range(n_fold):
+        with open(os.path.join(out, f"Fold_{k + 1}/pred/slice_prediction_scores.csv"),
+                  newline="") as f:
+            slices += [dict(r, Fold=k + 1) for r in csv.DictReader(f)]
+    dice = np.asarray([num(r["Dice"]) for r in slices])
+    slab = np.asarray([int(r["label"]) for r in slices])
+    ich = np.sort(dice[slab == 1])
+    held = {
+        "confusion": all(np.array_equal(a, b) for a, b in zip(
+            tab["confusion"], (cm, cm[lab == 1], cm[lab == 0]))),
+        "volume dice": np.array_equal(tab["dice_groups"][0][:, 0],
+                                      [num(r["Dice"]) for r in vol_rows]),
+        "slice dice": np.array_equal(tab["dice_groups"][1][:, 0], dice),
+        "folds": np.array_equal(tab["slices"]["Fold"], [r["Fold"] for r in slices]),
+        "picks": np.array_equal(dice[tab["picks"]], np.r_[ich[:2], ich[-1:]]),
+        "grid": all(np.array_equal(dice[rows], np.sort(dice[slab == lb])[::1 if asc else -1]
+                                   [:len(rows)]) and np.all(slab[rows] == lb)
+                    for (asc, lb, _), rows in zip(analyse_exp.GRID_SPECS, tab["grid"])),
+        "histories": [h.shape[0] for h in tab["hist"]] == [cfg["train"]["n_epoch"]] * n_fold,
+    }
+    ok = all(held.values())
+    trip = [analyse_exp.load_overlay_triplet(out, cfg["path"]["DATA"],
+                                             analyse_exp.slice_row(tab["slices"], i),
+                                             tab["window"]) for i in tab["picks"]]
+    side = PREP_NIFTI[1]
+    ok_trip = all(c.shape == t.shape == p.shape == (side, side) and t.dtype == p.dtype == bool
+                  for c, t, p in trip)
+    pdf = os.path.join(out, "results_overview.pdf")
+    check(not os.path.exists(pdf), "prep: a PDF from the CLI without matplotlib")
+    if _matplotlib():  # the k-fold experiment's call, with matplotlib (and PIL) importable
+        import re
+
+        analyse_exp.analyse_supervised_exp(out, cfg["path"]["DATA"], n_fold, save_fn=pdf)
+        with open(pdf, "rb") as f:
+            pages = len(re.findall(rb"/Type\s*/Page\b(?!s)", f.read()))
+        check(pages == 2, f"prep: results_overview.pdf has {pages} pages")
+        drawn = f"results_overview.pdf written, {pages} pages"
+    else:
+        drawn = "matplotlib is not installed here: the k-fold CLI logged that it skipped the PDF"
+    print(f"prep (b) supervised2d CLI on (a)'s tree ({TRAIN_CFG} at its width: "
+          f"{n_fold} folds x {cfg['train']['n_epoch']} epoch, {side}^2 slices read at "
+          f"{cfg['data']['size']}^2) in {wall!r} s; analysis tables against the fold CSVs: "
+          f"{held}; {len(slices)} slice rows, picks {tab['picks']}, overlay triplets at "
+          f"{side}^2 with the prediction resized: {ok_trip}; {drawn}")
+    check(ok and ok_trip, "prep: the analysis tables differ from the fold CSVs")
+    return out
+
+
+def _prep_cq500(work: str, exp: str) -> list:
+    """(c) a CQ500 root through ``qure-extract``, one series through
+    ``dicom-to-nifti``, then the extracted volumes segmented on the card by
+    the ``segment_brain`` CLI with (b)'s fold-1 weights; returns the
+    extracted NIfTIs."""
+    n_pat, n_slices, side = CQ500_TREE
+    root = os.path.join(work, "cq500")
+    write_cq500_tree(root, n_patients=n_pat, n_slices=n_slices, size=side, seed=SEED + 13)
+    qure = os.path.join(work, "qure")
+    t0 = time.perf_counter()
+    with _unimportable(NOT_ON_THE_CARD_PREP):
+        data_preparation.main(["qure-extract", "--input-path", root, "--out-folder", qure])
+        data_preparation.main(["dicom-to-nifti", "--series-dir", os.path.join(root, "1"),
+                               "--out-fn", os.path.join(work, "series1.nii")])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, "series1.nii"), "rb") as a, \
+            open(os.path.join(qure, "1.nii"), "rb") as b:
+        same = a.read() == b.read()
+    with open(os.path.join(qure, "info.csv"), newline="") as f:
+        info = list(csv.reader(f))
+    check(same and info[0] == ["", "id", "filename", "n_slice", "ICH", "IPH"]
+          and [r[1:4] for r in info[1:]] == [[str(i), f"{i}.nii", str(n_slices)]
+                                             for i in range(n_pat)],
+          f"prep: qure-extract wrote {info}, dicom-to-nifti equal {same}")
+    vols = [os.path.join(qure, f"{i}.nii") for i in range(n_pat)]
+    cfg = load_prep_cfg(work)
+    net = cfg["net"]
+    t0 = time.perf_counter()
+    outs = segment_brain.main(
+        vols + ["-o", os.path.join(work, "qure_masks"), "-m",
+                os.path.join(exp, "Fold_1", "trained_unet.bin"), "--depth", str(net["depth"]),
+                "--top-filter", str(net["top_filter"]), "--midchannels-factor",
+                str(net.get("midchannels_factor", 1)), "--size", str(cfg["data"]["size"]),
+                "--device", DEV])
+    seg_wall = time.perf_counter() - t0
+    masks = [nifti.load(o)[0] for o in outs]
+    ok = all(m.shape == (side, side, n_slices) and m.dtype == np.uint8
+             and set(np.unique(m).tolist()) <= {0, 255} for m in masks)
+    print(f"prep (c) qure-extract of {n_pat} CQ500 series of {n_slices} DICOMs of {side}^2 "
+          f"and dicom-to-nifti in {wall!r} s (the NIfTIs equal byte for byte; info.csv merged "
+          f"with ICH_probabilities.csv); segment_brain of the extracted volumes with (b)'s "
+          f"Fold_1 weights on the card in {seg_wall!r} s: uint8 masks in {{0, 255}} of "
+          f"{masks[0].shape}: {ok}, positive shares "
+          f"{[float(np.mean(m == 255)) for m in masks]!r}")
+    check(ok, "prep: segment_brain's masks are not uint8 {0, 255} of the volumes' shape")
+    return vols
+
+
+def _prep_figures(work: str, extracted: list) -> None:
+    """(d) each figures command's arrays on (a)'s and (c)'s files (the
+    window on the card against the CPU), and each command's file where
+    matplotlib is installed."""
+    tree = os.path.join(work, "seg2d")
+    st = figures.dataset_stats_arrays(tree)
+    meta = figures.metadata_arrays(tree)
+    imgs, masks = figures.gif_frames(tree, PREP_IDS[0])
+    vol, mask, affine = figures.load_windowed(extracted[0], None, WINDOW, DEV)
+    cpu = figures.load_windowed(extracted[0], None, WINDOW, "cpu")[0]
+    err = float(np.abs(vol - cpu).max())
+    views = figures.mip_views(vol, mask, affine)
+    ok = (st["slices_per_patient"].tolist() == [PREP_NIFTI[2]] * PREP_NIFTI[0]
+          and int(st["label_counts"].sum()) == PREP_NIFTI[0] * PREP_NIFTI[2]
+          and meta["gender"] == ["Male", "Female"] and len(imgs) == len(masks) == PREP_NIFTI[2]
+          and [v[3] for v in views] == [1.0, 10.0, 10.0] and err <= 1e-6)
+    print(f"prep (d) figures' arrays: slices per patient {st['slices_per_patient'].tolist()}, "
+          f"slice labels {st['label_counts'].tolist()}, genders {meta['gender']} "
+          f"{meta['gender_counts'].tolist()}, {len(imgs)} GIF frames, MIP aspects "
+          f"{[float(v[3]) for v in views]}; window on the card against the CPU max |diff| {err!r} "
+          f"(tolerance 1e-6): {ok}")
+    check(ok, "prep: the figures' arrays")
+    if not _matplotlib():
+        print("prep (d) figures: skipped drawing, matplotlib is not installed here")
+        return
+    rsna = os.path.join(work, "rsna")
+    write_rsna_slice_info(write_rsna_tree(rsna, n_slices=24, size=64, seed=SEED),
+                          os.path.join(rsna, "slice_info.csv"))
+    figs = os.path.join(work, "figs")
+    outs = [os.path.join(figs, n) for n in ("stats.pdf", "metadata_stat.pdf",
+                                            f"{PREP_IDS[0]}_CT.gif", "rsna.pdf", "montage.png",
+                                            "mip.png")]
+    os.makedirs(figs)
+    figures.main(["dataset-stats", "--data-dir", tree, "--out-fn", outs[0]])
+    figures.main(["explore", "--data-dir", tree, "--out-dir", figs, "--gif-patient",
+                  str(PREP_IDS[0])])
+    figures.main(["rsna-stats", "--csv-path", os.path.join(rsna, "slice_info.csv"),
+                  "--out-fn", outs[3]])
+    for mode, fn in (("montage", outs[4]), ("3d", outs[5])):
+        figures.main(["view-volume", extracted[0], "--mode", mode, "--out-fn", fn,
+                      "--device", DEV])
+    sizes = [os.path.getsize(o) if os.path.exists(o) else 0 for o in outs]
+    print(f"prep (d) figures written: {dict(zip(map(os.path.basename, outs), sizes))}")
+    check(all(n > 1000 for n in sizes), f"prep: a figure is missing or empty: {sizes}")
+
+
+def _prep_native(work: str) -> None:
+    """(e) the native loader built with g++, its decodes held equal to the
+    Python codec, its window + resize to the card's, and both decoders
+    timed per volume."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    check(native.available(), f"prep: the native loader did not load: {native._error}")
+    build_s = time.perf_counter() - t0
+    src = os.path.join(work, "nifti", "ct_scans")
+    paths = [os.path.join(src, n) for n in sorted(os.listdir(src))]
+    gz = []
+    for p in paths:  # gzip-compressed copies: the decode then inflates
+        gz.append(os.path.join(work, os.path.basename(p) + ".gz"))
+        nifti.save(gz[-1], nifti.load(p)[0], nifti.load(p)[1])
+    equal = True
+    for p in paths + gz:
+        got, pixdim = native.load_nifti_f32(p)
+        want, _, hdr = nifti.load(p)
+        equal &= bool(np.array_equal(got, want)) and bool(
+            np.allclose(pixdim[:3], nifti.pixdim(hdr)))
+    batch = native.load_nifti_batch(paths + gz)
+    equal &= all(np.array_equal(v, nifti.load(p)[0]) for (v, _), p in zip(batch, paths + gz))
+    vol = nifti.load(paths[0])[0]
+    slices = np.ascontiguousarray(np.moveaxis(vol, 2, 0))
+    size = 256
+    got = native.window_resize_batch(slices, *WINDOW, (size, size))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the resize's contractions in float32
+    try:
+        want = ct.resize(ct.window_ct(torch.from_numpy(slices).to(DEV), *WINDOW),
+                         (len(slices), size, size), order=1).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float(np.abs(got - want).max())
+
+    def per_volume(fn, files):
+        t = []
+        for _ in range(NATIVE_ROUNDS):
+            t0 = time.perf_counter()
+            fn(files)
+            t.append((time.perf_counter() - t0) * 1e3 / len(files))
+        return sorted(t)
+
+    times = {
+        "native .nii": per_volume(lambda fs: [native.load_nifti_f32(f) for f in fs], paths),
+        "python .nii": per_volume(lambda fs: [nifti.load(f) for f in fs], paths),
+        "native batch .nii": per_volume(native.load_nifti_batch, paths),
+        "native .nii.gz": per_volume(lambda fs: [native.load_nifti_f32(f) for f in fs], gz),
+        "python .nii.gz": per_volume(lambda fs: [nifti.load(f) for f in fs], gz),
+        "native batch .nii.gz": per_volume(native.load_nifti_batch, gz),
+    }
+    n, side, depth = PREP_NIFTI
+    print(f"prep (e) native loader built with g++ in {build_s!r} s -> {lib}; decodes of "
+          f"{len(paths)} .nii and {len(gz)} .nii.gz equal to nifti.load: {equal}; "
+          f"window_resize_batch {slices.shape} -> {size}^2 against window_ct + resize on the "
+          f"card: max |diff| {err!r} (tolerance 1e-4)")
+    print(f"prep (e) host decode ms per {side}x{side}x{depth} float32 volume ({NATIVE_ROUNDS} "
+          f"rounds over {n} files each, sorted; host CPU, {os.cpu_count()} cores; the card: "
+          f"{card_name_and_power()}): {json.dumps(times)}")
+    check(equal and err <= 1e-4, "prep: the native loader differs from the Python paths")
+
+
+def phase_prep(work: str) -> None:
+    """Phase 13: a public-layout dataset to masks on the card, through the
+    host-side modules; no EDT kernel runs on it."""
+    edt.launches = edt.mask_launches = 0
+    t0 = time.perf_counter()
+    _prep_trees(work)
+    exp = _prep_report(work)
+    extracted = _prep_cq500(work, exp)
+    _prep_figures(work, extracted)
+    _prep_native(work)
+    launches = _edt_launches()
+    print(f"prep: phase 13 in {time.perf_counter() - t0!r} s; EDT launches {launches}")
+    check(not any(launches.values()), "prep: an EDT kernel ran on phase 13's path")
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -3627,6 +4037,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_multigpu_") as work:
         phase_multigpu(work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as work:
+        phase_prep(work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",

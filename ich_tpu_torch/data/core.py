@@ -81,6 +81,12 @@ class SliceDataset2D:
     def image_shape(self) -> Tuple[int, ...]:
         return tuple(self.images.shape[1:])
 
+    def nchw_to_dense_vol_index(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Map raw volume ids to dense [0, n_volumes) indices.
+        Returns (dense_ids (N,) int32, unique_vol_ids (V,))."""
+        uniq, dense = np.unique(self.vol_ids, return_inverse=True)
+        return dense.astype(np.int32), uniq
+
     def subset(self, idx: np.ndarray) -> "SliceDataset2D":
         return SliceDataset2D(
             self.images[idx], self.masks[idx], self.vol_ids[idx], self.slice_nbrs[idx]

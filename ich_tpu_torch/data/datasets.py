@@ -20,7 +20,7 @@ from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D, VolumeDataset3D
 from ich_tpu_torch.data.dicom import read_ct_hu
 from ich_tpu_torch.data.segich import NO_MASK, _resize_host, load_segich_2d, read_image
-from ich_tpu_torch.data.table import read_csv
+from ich_tpu_torch.data.table import read_csv, write_csv
 from ich_tpu_torch.ops.ct import _resampled_shape, resample_ct, resize_nearest_zoom, window_ct
 
 RSNA_LABEL_COLUMNS = ("Hemorrhage", "epidural", "intraparenchymal", "intraventricular",
@@ -178,23 +178,20 @@ def write_rsna_slice_info(label_csv: str, out_csv: str) -> int:
     if "any" not in subtypes:
         header.append("Hemorrhage")
     header.append("no_Hemorrhage")
-    n = 0
-    with open(out_csv, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(header)
-        for i, sop in enumerate(sops):
-            if sop + ".dcm" == RSNA_CORRUPT_FILE:
-                continue
-            labels = table[sop]
-            row = [i, sop] + [cell(labels.get(st)) for st in subtypes] + [sop + ".dcm"]
-            if "any" in subtypes:
-                h = labels.get("any")
-                row.append(cell(None if h is None else 1 - h))
-            else:
-                row += [0, 1]
-            w.writerow(row)
-            n += 1
-    return n
+    rows = []
+    for i, sop in enumerate(sops):
+        if sop + ".dcm" == RSNA_CORRUPT_FILE:
+            continue
+        labels = table[sop]
+        row = [i, sop] + [cell(labels.get(st)) for st in subtypes] + [sop + ".dcm"]
+        if "any" in subtypes:
+            h = labels.get("any")
+            row.append(cell(None if h is None else 1 - h))
+        else:
+            row += [0, 1]
+        rows.append(row)
+    write_csv(out_csv, header, rows)
+    return len(rows)
 
 
 def read_slice_info(path: str) -> List[Dict[str, str]]:

@@ -4,8 +4,10 @@ copied from ``ich_tpu/data/synthetic.py`` (``_lesion_mask_2d``,
 and ``write_rsna_tree``; importing ``ich_tpu.data`` imports jax): a
 skull-like bright ring, brain-tissue texture, and ellipsoidal hyperdense
 "hemorrhage" lesions with matching masks, the same arrays and files for the
-same seed as the JAX package's. The SegICH tree is written with the numpy
-TIFF and BMP writers and the ``csv`` module, without PIL or pandas."""
+same seed as the JAX package's; also ``write_cq500_tree`` and
+``synthetic_ich_volume``. The trees are written with the numpy TIFF, BMP
+and DICOM writers and :func:`~ich_tpu_torch.data.table.write_csv`, without
+PIL or pandas."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 from ich_tpu_torch.data.bmp import save_bmp_gray
 from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
 from ich_tpu_torch.data.dicom import write_minimal_dicom
+from ich_tpu_torch.data.table import write_csv
 from ich_tpu_torch.data.tiff import write_tiff
 
 
@@ -154,18 +157,16 @@ def write_segich_tree(
                           ((dataset.masks[i] > 0) * 255).astype(np.uint8))
         rows.append([i, vid, snb, ct_fn, mask_fn, pos])
         patients[vid] = max(patients.get(vid, 0), pos)
-    with open(os.path.join(out_dir, "ct_info.csv"), "w", newline="") as f:
-        wtr = csv.writer(f, lineterminator="\n")
-        wtr.writerow(["", "PatientNumber", "SliceNumber", "CT_fn", "mask_fn", "Hemorrhage"])
-        wtr.writerows(rows)
+    write_csv(os.path.join(out_dir, "ct_info.csv"),
+              ["", "PatientNumber", "SliceNumber", "CT_fn", "mask_fn", "Hemorrhage"], rows)
     # demographics drawn per patient id from a fixed seed, as the JAX writer
     meta_rng = np.random.default_rng(1234)
-    with open(os.path.join(out_dir, "patient_info.csv"), "w", newline="") as f:
-        wtr = csv.writer(f, lineterminator="\n")
-        wtr.writerow(["", "PatientNumber", "Age", "Gender", "Hemorrhage"])
-        for j, (k, v) in enumerate(sorted(patients.items())):
-            age = int(meta_rng.integers(18, 95))
-            wtr.writerow([j, k, age, "Male" if meta_rng.uniform() < 0.5 else "Female", v])
+    prows = []
+    for j, (k, v) in enumerate(sorted(patients.items())):
+        age = int(meta_rng.integers(18, 95))
+        prows.append([j, k, age, "Male" if meta_rng.uniform() < 0.5 else "Female", v])
+    write_csv(os.path.join(out_dir, "patient_info.csv"),
+              ["", "PatientNumber", "Age", "Gender", "Hemorrhage"], prows)
     return out_dir
 
 
@@ -214,3 +215,44 @@ def write_rsna_tree(out_dir: str, n_slices: int = 12, size: int = 32, seed: int 
         wtr.writerow(["ID", "Label"])
         wtr.writerows(rows)
     return os.path.join(out_dir, "stage_2_train.csv")
+
+
+def write_cq500_tree(
+    out_dir: str, n_patients: int = 2, n_slices: int = 6, size: int = 32, seed: int = 0
+) -> str:
+    """A qureAI CQ500 root: one DICOM-series directory per numeric patient
+    id, the files named NOT in z order (a slice's position is its
+    ImagePositionPatient, by which ``series_to_volume`` sorts, as in the
+    real series), plus ``ICH_probabilities.csv`` indexed by patient id
+    (``qureAI_extract_as_nifti.py:55-60``)."""
+    rng = np.random.default_rng(seed)
+    prob_rows = []
+    for pid in range(n_patients):
+        pdir = os.path.join(out_dir, str(pid))
+        os.makedirs(pdir, exist_ok=True)
+        ds = synthetic_ich_slices(n_slices=n_slices, size=size, seed=seed + pid)
+        order = rng.permutation(n_slices)  # filename order != z order
+        for file_idx, z_idx in enumerate(order):
+            hu = ds.images[z_idx] * 200.0 - 50.0
+            write_minimal_dicom(
+                os.path.join(pdir, f"CT-{file_idx:04d}.dcm"),
+                np.round(hu + 1024.0).astype(np.int16),
+                slope=1.0, intercept=-1024.0,
+                spacing=(0.5, 0.5),
+                position=(0.0, 0.0, float(z_idx) * 5.0),
+            )
+        prob_rows.append([pid, float(rng.uniform()), float(rng.uniform())])
+    write_csv(os.path.join(out_dir, "ICH_probabilities.csv"), ["id", "ICH", "IPH"], prob_rows)
+    return out_dir
+
+
+def synthetic_ich_volume(
+    size: int = 64, depth: int = 32, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One (H, W, D) volume in raw HU-like units and its (H, W, D) mask."""
+    ds = synthetic_ich_slices(n_slices=depth, size=size, n_volumes=1, seed=seed)
+    vol = np.transpose(ds.images, (1, 2, 0))  # (H, W, D)
+    mask = np.transpose(ds.masks, (1, 2, 0))
+    # map [0,1] windowed intensity back to a HU-like range (win 50/200)
+    vol_hu = vol * 200.0 + (50.0 - 100.0)
+    return vol_hu.astype(np.float32), mask.astype(np.float32)

@@ -8,13 +8,15 @@ missing-value markers (``""``, ``"None"``, ``"nan"``, ``"NA"``, ...) read
 as NaN. A :class:`Table` answers the few DataFrame operations the port's
 callers use, so that they take either: ``len``, ``table["col"]`` (a numpy
 column), ``table[bool_array]`` (the rows kept), ``.index`` and
-``.to_dict("records")``.
+``.to_dict("records")``. :func:`write_csv` writes rows as ``to_csv``
+writes a frame.
 """
 
 from __future__ import annotations
 
 import csv
-from typing import Dict, List
+import re
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -24,7 +26,46 @@ NA_VALUES = frozenset({
     "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
 
 
-def _column(cells: List[str]) -> np.ndarray:
+_POWERS = [float(f"1e{k}") for k in range(309)]
+_DECIMAL = re.compile(r"\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*\Z")
+
+
+def pandas_float(text: str) -> float:
+    """``text`` as pandas' C parser reads a float by default
+    (``precise_xstrtod`` in ``pandas/_libs/src/parser/tokenizer.c``): up to
+    17 significant digits gathered in a double, then one multiply or divide
+    by a power of ten. It is not always correctly rounded: a 17-digit
+    ``repr`` may come back one unit in the last place away from ``float``'s
+    answer, and pandas writes that value back."""
+    m = _DECIMAL.match(text)
+    if m is None or not (m.group(2) or m.group(3)):
+        return float(text)  # inf, nan and the like; raises on a non-number
+    sign, ipart, fpart, exp = m.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in ipart:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (fpart or "")[:max(0, 17 - digits)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    exponent += int(exp) if exp else 0
+    if exponent > 308:
+        return float("inf") if number > 0 else float("-inf")
+    if exponent > 0:
+        return number * _POWERS[exponent]
+    if exponent < -616:
+        return 0.0 * number
+    if exponent < -308:
+        return number / _POWERS[-308 - exponent] / _POWERS[308]
+    return number / _POWERS[-exponent]
+
+
+def parse_column(cells: List[str]) -> np.ndarray:
     """A column's cells as pandas' parser types them."""
     present = [c for c in cells if c not in NA_VALUES]
     if len(present) == len(cells):
@@ -33,7 +74,7 @@ def _column(cells: List[str]) -> np.ndarray:
         except ValueError:
             pass
     try:
-        return np.asarray([float(c) if c not in NA_VALUES else np.nan for c in cells],
+        return np.asarray([pandas_float(c) if c not in NA_VALUES else np.nan for c in cells],
                           dtype=np.float64)
     except ValueError:
         return np.asarray([c if c not in NA_VALUES else np.nan for c in cells], dtype=object)
@@ -69,7 +110,7 @@ def read_csv(path: str) -> Table:
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
     header, body = rows[0], rows[1:]
-    cols = {name: _column([r[j] for r in body]) for j, name in enumerate(header)}
+    cols = {name: parse_column([r[j] for r in body]) for j, name in enumerate(header)}
     index = cols.pop(header[0])
     return Table(cols, index)
 
@@ -80,3 +121,22 @@ def unique_in_order(values) -> np.ndarray:
     values = np.asarray(values)
     _, first = np.unique(values, return_index=True)
     return values[np.sort(first)]
+
+
+def _cell(v):
+    """A cell as pandas' ``to_csv`` writes it: a missing value (None, NaN)
+    empty, a number as ``str`` gives it (``repr`` for a float)."""
+    if v is None or (isinstance(v, (float, np.floating)) and v != v):
+        return ""
+    return v
+
+
+def write_csv(path: str, header: Sequence[str], rows: Iterable[Sequence]) -> None:
+    """A header row, then ``rows``, with lines ended by ``\\n``: the bytes
+    of pandas' ``to_csv`` for ints, float64s, strings and missing cells. A
+    column of ints that pandas holds as floats (one with a missing cell)
+    must be passed as floats."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows([_cell(v) for v in r] for r in rows)

@@ -29,13 +29,13 @@ import torch
 
 from ich_tpu_torch.data.png import save_png_gray
 from ich_tpu_torch.data.segich import load_segich_2d
+from ich_tpu_torch.data.table import write_csv
 from ich_tpu_torch.experiments.inpainting_gan import build_gan_nets
 from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.postprocessing.update_pred import slice_score_row, write_prediction_scores
 from ich_tpu_torch.train.classifier import BinaryClassifier
 from ich_tpu_torch.train.gan import SNPatchGAN
 from ich_tpu_torch.train.inpaint_ad import InpaintAnomalyDetector, robust_anomaly_detect
-from ich_tpu_torch.train.segmentation2d import write_csv
 from ich_tpu_torch.utils.logging import setup_logger
 
 INFO_COLUMNS = ("PatientNumber", "SliceNumber", "attention_fn")

@@ -13,10 +13,13 @@ table.Table`s and the slices with the numpy TIFF and BMP readers: it needs
 neither pandas nor PIL.
 
 Differences from the JAX experiment: the fold split is :func:`stratified_kfold`
-(numpy; the same folds as scikit-learn's ``StratifiedKFold``), the
-analysis PDF is not ported (a log line says it was skipped), and
+(numpy; the same folds as scikit-learn's ``StratifiedKFold``) and
 ``model_path_to_load`` names a port weights file (for example one converted
-by ``scripts/jax_to_torch_model.py``). Run it as::
+by ``scripts/jax_to_torch_model.py``). As in the JAX experiment, the
+analysis PDF ``results_overview.pdf``
+(:func:`ich_tpu_torch.postprocessing.analyse_exp.analyse_supervised_exp`)
+is best-effort: where it fails, for example without matplotlib, a warning
+says why. Run it as::
 
     python -m ich_tpu_torch.experiments.supervised2d CONFIG.json [--device cuda]
 """
@@ -38,6 +41,7 @@ from ich_tpu_torch.data.table import read_csv, unique_in_order
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops.metrics import fold_aggregate
 from ich_tpu_torch.ops.transforms import Compose, build_pipeline
+from ich_tpu_torch.postprocessing.analyse_exp import analyse_supervised_exp
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.utils import preemption
@@ -259,7 +263,11 @@ def run_supervised_2d(
 
     with open(os.path.join(out_path, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
-    logger.info("analysis PDF skipped: not ported (ROADMAP.md §1)")
+    try:
+        analyse_supervised_exp(out_path, data_dir, n_fold,
+                               save_fn=os.path.join(out_path, "results_overview.pdf"))
+    except Exception as e:  # the PDF is best-effort (matplotlib, prediction artifacts)
+        logger.warning("analysis PDF skipped: %s", e)
     return out_path
 
 

@@ -34,7 +34,6 @@ volume per rank (:func:`ich_tpu_torch.parallel.volume_parallel_map`).
 from __future__ import annotations
 
 import contextlib
-import csv
 import logging
 import os
 import time
@@ -48,6 +47,7 @@ import torch.nn as nn
 
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.bmp import save_bmp_gray
+from ich_tpu_torch.data.table import write_csv
 from ich_tpu_torch.data.core import SliceDataset2D, batch_indices
 from ich_tpu_torch.models.layers import Dropout, sync_batch_norm
 from ich_tpu_torch.ops import ct
@@ -113,16 +113,6 @@ def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> No
     for m in net.modules():
         if isinstance(m, Dropout):
             m.generator = gen
-
-
-def write_csv(path: str, header: Sequence[str], rows: Iterable[Sequence]) -> None:
-    """A header row, then ``rows``; numbers as ``str`` gives them and lines
-    ended by ``\\n``, which is how pandas' ``to_csv`` writes ints and
-    float64s."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(header)
-        w.writerows(rows)
 
 
 def volume_table(cols: Dict[str, Sequence], sums: Sequence[str]) -> Tuple[np.ndarray, dict]:
@@ -515,6 +505,8 @@ class UNet2D:
                             save_fn)
         if return_pred:
             return pred
+
+    segement_volume = segment_volume  # the reference's name
 
     def segment_volumes(
         self,

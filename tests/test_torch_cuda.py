@@ -710,3 +710,26 @@ def test_nccl_world1_step_matches_plain_step(card, tmp_path):
         torch.testing.assert_close(bm, bp, rtol=1e-4, atol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+def test_native_loader_builds_on_the_card_machine(card, tmp_path):
+    """``ich_tpu_torch.native`` builds with the card machine's g++ and zlib,
+    and its decode and window + resize agree with the port's Python codec
+    and the card's window + resize."""
+    from ich_tpu_torch import native
+    from ich_tpu_torch.data import nifti
+    from ich_tpu_torch.ops import ct
+
+    assert native.available(), native._error
+    rng = np.random.default_rng(11)
+    vol = rng.uniform(-200, 300, size=(64, 48, 6)).astype(np.float32)
+    fn = str(tmp_path / "v.nii.gz")
+    nifti.save(fn, vol, np.diag([0.5, 0.5, 5.0, 1.0]))
+    got, pixdim = native.load_nifti_f32(fn)
+    np.testing.assert_array_equal(got, nifti.load(fn)[0])
+    np.testing.assert_allclose(pixdim, [0.5, 0.5, 5.0])
+    slices = np.moveaxis(vol, 2, 0)
+    want = ct.resize(ct.window_ct(torch.from_numpy(slices).cuda(), 50, 200), (6, 32, 24),
+                     order=1).cpu().numpy()
+    np.testing.assert_allclose(native.window_resize_batch(slices, 50, 200, (32, 24)), want,
+                               atol=1e-4)

@@ -1,8 +1,11 @@
-"""The port imports no JAX: with jax, flax, optax and ich_tpu blocked, every
-module of ich_tpu_torch and chip_smoke.py's module-level imports load, and
-none of them imports pandas, PIL or scikit-learn. With those three blocked
-as well, the SegICH 2D CSV path runs: the supervised2d CLI takes a
-port-written tree to its aggregates on the CPU; and the SN-PatchGAN CLI
+"""The port imports no JAX: with jax, flax, optax, ich_tpu, matplotlib and
+imageio blocked, every module of ich_tpu_torch and chip_smoke.py's
+module-level imports load, and none of them imports pandas, PIL or
+scikit-learn. With those three blocked as well, the SegICH 2D CSV path
+runs: the supervised2d CLI takes a port-written tree to its aggregates on
+the CPU, and without matplotlib logs that it skipped the analysis PDF; the
+data preparation CLI writes a SegICH 2D tree from NIfTIs and extracts a
+CQ500 root with click blocked too; and the SN-PatchGAN CLI
 trains a tiny generator on a port-written RSNA tree, whose weights the
 inpainting-AD CLI then runs (with a ResNet-18 gate) on a SegICH tree, its
 attention export included; the AE CLI trains and detects, the FCDD CLI
@@ -18,14 +21,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu"):
+    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "matplotlib", "imageio"):
         sys.modules[name] = None  # any import of these now raises ImportError
     import ich_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(ich_tpu_torch.__path__, "ich_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
     import chip_smoke
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "ich_tpu")
+    loaded = [m for m in sys.modules if m.split(".")[0] in
+              ("jax", "flax", "optax", "ich_tpu", "matplotlib", "imageio")
               and sys.modules[m] is not None]
     assert not loaded, loaded
     for name in ("ich_tpu_torch.ops.transforms3d", "ich_tpu_torch.data.patch_sampler",
@@ -47,7 +51,11 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.experiments.fcdd",
                  "ich_tpu_torch.experiments.attention_unet2d",
                  "ich_tpu_torch.parallel.mesh", "ich_tpu_torch.parallel.sharded_inference",
-                 "ich_tpu_torch.train.checkpoint_sharded"):
+                 "ich_tpu_torch.train.checkpoint_sharded",
+                 "ich_tpu_torch.experiments.data_preparation",
+                 "ich_tpu_torch.experiments.figures", "ich_tpu_torch.native",
+                 "ich_tpu_torch.postprocessing.plots",
+                 "ich_tpu_torch.postprocessing.analyse_exp"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()
@@ -65,7 +73,8 @@ def test_port_and_chip_smoke_import_without_jax():
 
 CSV_PROBE = textwrap.dedent("""
     import json, os, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "pandas", "PIL", "sklearn"):
+    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "pandas", "PIL", "sklearn",
+                 "matplotlib", "imageio"):
         sys.modules[name] = None  # any import of these now raises ImportError
     from ich_tpu_torch.data.synthetic import synthetic_ich_slices, write_segich_tree
     from ich_tpu_torch.experiments import supervised2d
@@ -96,10 +105,53 @@ def test_segich_csv_path_runs_without_pandas_pil_or_sklearn(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.splitlines()[-1].startswith("Dice = ")
+    assert "analysis PDF skipped: import of matplotlib halted" in r.stdout
+    assert not (tmp_path / "out" / "exp" / "results_overview.pdf").exists()
     for k in (1, 2):
         assert (tmp_path / "out" / "exp" / f"Fold_{k}" / "pred" /
                 "volume_prediction_scores.csv").exists()
     assert (tmp_path / "out" / "exp" / "all_volume_prediction.csv").exists()
+
+
+PREP_PROBE = textwrap.dedent("""
+    import os, sys
+    for name in ("jax", "jaxlib", "flax", "optax", "ich_tpu", "pandas", "PIL", "sklearn",
+                 "click", "matplotlib", "imageio"):
+        sys.modules[name] = None  # any import of these now raises ImportError
+    import numpy as np
+    from ich_tpu_torch.data import nifti
+    from ich_tpu_torch.data.synthetic import synthetic_ich_volume, write_cq500_tree
+    from ich_tpu_torch.experiments import data_preparation
+    work = sys.argv[1]
+    for sub in ("ct_scans", "masks"):
+        os.makedirs(os.path.join(work, "nifti", sub))
+    for pid in (1, 2):
+        vol, mask = synthetic_ich_volume(size=32, depth=6, seed=pid)
+        nifti.save(os.path.join(work, "nifti", "ct_scans", f"{pid:03}.nii"), vol)
+        nifti.save(os.path.join(work, "nifti", "masks", f"{pid:03}.nii"), mask.astype(np.uint8))
+    with open(os.path.join(work, "demo.csv"), "w") as f:
+        f.write("Patient Number,Age,Gender\\n,,\\n2,50,Male\\nTotal,,\\n,,\\n")
+    data_preparation.main(["gen-2d-seg", "--data-dir", os.path.join(work, "nifti"),
+                           "--out-dir", os.path.join(work, "seg2d"),
+                           "--demographics-csv", os.path.join(work, "demo.csv")])
+    write_cq500_tree(os.path.join(work, "cq500"), n_patients=2, n_slices=4, size=16)
+    data_preparation.main(["qure-extract", "--input-path", os.path.join(work, "cq500"),
+                           "--out-folder", os.path.join(work, "qure")])
+    loaded = [m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in
+              ("jax", "ich_tpu", "pandas", "PIL", "sklearn", "click", "matplotlib", "imageio")]
+    assert not loaded, loaded
+""")
+
+
+def test_data_preparation_runs_without_pandas_pil_or_click(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", PREP_PROBE, str(tmp_path)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(tmp_path / "seg2d" / "patient_info.csv") as f:
+        assert f.read() == ",PatientNumber,Hemorrhage,Age,Gender\n0,1,1,,\n1,2,1,50.0,Male\n"
+    assert len(os.listdir(tmp_path / "seg2d" / "1" / "ct")) == 6
+    assert sorted(os.listdir(tmp_path / "qure")) == ["0.nii", "1.nii", "info.csv"]
 
 
 GAN_AD_PROBE = textwrap.dedent("""

@@ -169,3 +169,31 @@ def test_serve_refuses_3d_and_missing_card(pair, tmp_path):
             serve.main(_serve_args(tmp_path, tmp_path / "o", model_fn, "--device", "cuda"))
         with pytest.raises(RuntimeError):
             UNet2D(UNet(**NET))
+
+
+def test_segement_volume_alias_matches_jax(pair):
+    """The reference's misspelt ``segement_volume`` is ``segment_volume`` on
+    the 2D trainer, as on the JAX package's."""
+    jt, pt = pair
+    assert UNet2D.segement_volume is UNet2D.segment_volume
+    assert JaxUNet2D.segement_volume is JaxUNet2D.segment_volume
+    vol = VOLUMES["square"]()
+    np.testing.assert_array_equal(pt.segement_volume(vol, return_pred=True, **KW),
+                                  pt.segment_volume(vol, return_pred=True, **KW))
+
+
+@pytest.mark.parametrize("vol_ids", [[7, 7, 3, 3, 3, 12, 7, 0], [5], [-2, 9, -2, 1]])
+def test_nchw_to_dense_vol_index_matches_jax(vol_ids):
+    from ich_tpu.data.core import SliceDataset2D as JaxSliceDataset2D
+
+    from ich_tpu_torch.data.core import SliceDataset2D
+
+    n = len(vol_ids)
+    args = (np.zeros((n, 4, 4), np.float32), np.zeros((n, 4, 4), np.float32), vol_ids,
+            np.arange(n))
+    dense, uniq = SliceDataset2D(*args).nchw_to_dense_vol_index()
+    want_dense, want_uniq = JaxSliceDataset2D(*args).nchw_to_dense_vol_index()
+    assert dense.dtype == np.int32 and dense.dtype == want_dense.dtype
+    np.testing.assert_array_equal(dense, want_dense)
+    np.testing.assert_array_equal(uniq, want_uniq)
+    assert uniq.dtype == want_uniq.dtype
