@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero before
 its last line:
 
 1. device: a CUDA card is required (no fallback to the CPU); prints its
-   name and ``nvidia-smi``'s name and power limit;
+   name and ``nvidia-smi``'s name and power limit, and looks up its
+   data-sheet peaks by that name (a card without them stops the script);
 2. build: compiles ``ich_tpu_torch/csrc/*.cu`` into ``build/ich_tpu_torch/``;
 3. the two EDT kernels of ``csrc/edt.cu`` against their plain PyTorch
    versions on the card, with ``torch.equal``: the lower-envelope pass
@@ -233,15 +234,30 @@ its last line:
    built with g++, its decodes of (a)'s CTs (and gzip copies) equal to
    ``nifti.load``, ``window_resize_batch`` within 1e-4 of the window and
    resize on the card, and both decoders' ms per volume. The EDT launches
-   over phase 13 read 0.
+   over phase 13 read 0;
+14. the paired label-efficiency study
+   (``ich_tpu_torch.experiments.label_efficiency_study.main``) at its width
+   (U-Net d4 f16 mcf1, dropout 0.1, BatchNorm, float32 with TF32, 64x64
+   slices, batch 16, its 5 patient folds), seed 42, arms scratch,
+   pretrained (context restoration) and contrastive_local (global then
+   local contrastive), fractions 0.25 and 1.0, cut to 2 fine-tune epochs
+   (40) and 1 pretraining epoch a phase (30), with pandas, PIL,
+   scikit-learn, matplotlib and imageio unimportable: (a) ``results.json``
+   holds 5 finite Dice in [0, 1] per arm x fraction, and each pretrained
+   arm's fold-1 nets start from its ``pretrained.bin`` (every shared key
+   equal) and not from scratch's; (b) the table and
+   ``compare_to_reference`` against the JAX package's snapshots in
+   ``docs/`` run, headed by the run's ``provenance.json``. The EDT
+   launches over phase 14 read 0.
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training, SSL, phase 9, phase 11 and phase 12 paths
+read just after (the training, SSL, phase 9, phase 11, 12, 13 and 14 paths
 must read 0). The line
 before the last is a JSON object with each EDT kernel's launches on the
 path that owns it (the GAN training of phase 10 (a)), its launches by path
-(phase 4's EDT leg too), its error against the plain version, both times
-and its bound; the last line is ``{"ok": true, "device": {...}}``.
+(phase 4's EDT leg and phase 14's study too), its error against the plain
+version, both times and its bound; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -262,7 +278,6 @@ import numpy as np
 import scipy.ndimage as ndi
 import torch
 import torch.nn.functional as F
-from torch.utils.flop_counter import FlopCounterMode
 
 from ich_tpu_torch import parallel, serve
 from ich_tpu_torch.data import nifti
@@ -283,6 +298,7 @@ from ich_tpu_torch.data.table import pandas_float
 from ich_tpu_torch.experiments import ad_inpainting, ae_ad, attention_unet2d, fcdd, inpainting_gan
 from ich_tpu_torch.experiments import binary_resnet, brain_extraction, pred_on_brain, segment_brain
 from ich_tpu_torch.experiments import data_preparation, figures, supervised2d
+from ich_tpu_torch.experiments import label_efficiency_study as study
 from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
 from ich_tpu_torch.experiments.pretrain_finetune import (
     _seeded,
@@ -337,6 +353,7 @@ from ich_tpu_torch.train.inpaint_ad import robust_anomaly_detect
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
+from ich_tpu_torch.utils.profiling import compiled_flops, peak_hbm_tbs, peak_tflops, time_fn
 
 SEED = 0
 GAN_SHAPE = (16, 256, 256)  # configs/inpainting_gan.json: batch 16, size 256
@@ -354,9 +371,10 @@ NET3D = dict(depth=4, ndim=3, top_filter=16, midchannels_factor=2, norm="group",
              p_dropout=0.0)
 PATCH3D = 64
 CROP3D = (slice(0, 64), slice(192, 320), slice(192, 320))  # 9 patches of 64^3
-H100_BF16_TFLOPS = 989.0  # dense, SXM, at 700 W (NVIDIA's data sheet)
-H100_TF32_TFLOPS, H100_FP32_TFLOPS = 495.0, 67.0  # the same data sheet
-H100_HBM_TBS = 3.35  # device memory, TB/s (the same data sheet)
+# the printed shares of peak and the byte bounds are of the card's dense
+# data-sheet peaks (ich_tpu_torch/utils/profiling.PEAKS), looked up by
+# phase 1 from its name: "bf16", "tf32", "fp32" TFLOP/s and "hbm_tbs" TB/s
+PEAK: dict = {}
 # phase 6: configs/unet2d.json at its width; (slices, volumes) per fold
 TRAIN_CFG = "configs/unet2d.json"
 TRAIN_FOLD, TEST_FOLD = (512, 16), (128, 4)
@@ -415,6 +433,13 @@ PREP_NIFTI = (3, 512, 16)
 PREP_IDS = (49, 50, 51)  # the release's file names: 049.nii, ...
 CQ500_TREE = (2, 24, 512)  # qureAI CQ500 DICOM series: patients, slices, side
 NATIVE_ROUNDS = 3
+# phase 14: the paired label-efficiency study at its width (d4 f16 mcf1,
+# 64^2, its 5 folds), cut to 2 fine-tune epochs (40) and 1 pretraining epoch
+# a phase (30); one arm per pretrainer
+STUDY_SCALE = {"n_epoch": 2, "pretrain_epochs": 1}
+STUDY_FRACTIONS = (0.25, 1.0)
+STUDY_ARMS = ("scratch", "pretrained", "contrastive_local")
+STUDY_SEED = 42
 DEV = "cuda"
 
 
@@ -425,16 +450,8 @@ def check(cond: bool, msg: str) -> None:
 
 def cuda_ms(fn, *args, iters: int = 20) -> float:
     """Mean device milliseconds of ``fn(*args)`` over ``iters`` launches
-    (CUDA events, after a warm-up)."""
-    for _ in range(3):
-        fn(*args)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    after 3 warm-up launches (``time_fn``: CUDA events on the card)."""
+    return time_fn(fn, *args, iters=iters, warmup=3, device=DEV)["mean_s"] * 1e3
 
 
 # -- synthetic inputs ----------------------------------------------------------
@@ -525,6 +542,11 @@ def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required")
     kind = torch.cuda.get_device_name(0)
+    PEAK.update({p: peak_tflops(kind, p) for p in ("bf16", "tf32", "fp32")},
+                hbm_tbs=peak_hbm_tbs(kind))
+    if PEAK["hbm_tbs"] is None:
+        raise SystemExit(f"chip_smoke: {kind!r} has no data-sheet peaks in "
+                         f"ich_tpu_torch/utils/profiling.PEAKS; its bounds cannot be computed")
     smi = card_name_and_power()
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s))")
@@ -555,13 +577,13 @@ def _timed(label: str, fn, plain, args: tuple, bound_ms: float) -> dict:
     ms = [cuda_ms(f, *args) for f in (fn, plain, plain, fn)]
     kernel_ms, plain_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
     print(f"{label}: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
-          f"(bytes at {H100_HBM_TBS} TB/s), kernel at {100 * bound_ms / kernel_ms:.1f}% of "
+          f"(bytes at {PEAK['hbm_tbs']} TB/s), kernel at {100 * bound_ms / kernel_ms:.1f}% of "
           f"the bound")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def _bytes_ms(n_bytes: int) -> float:
-    return n_bytes / (H100_HBM_TBS * 1e12) * 1e3
+    return n_bytes / (PEAK["hbm_tbs"] * 1e12) * 1e3
 
 
 def phase_edt(rng: np.random.Generator) -> dict:
@@ -933,15 +955,14 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     n_patches = len(sw.make_patch_coords(vols[0].shape, patch, 0.5))
-    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
-        trainer.unet(torch.zeros((1, 1) + patch, device=DEV))
-    flops = fc.get_total_flops() * n_patches
+    with torch.inference_mode():
+        flops = compiled_flops(trainer.unet, torch.zeros((1, 1) + patch, device=DEV)) * n_patches
     tflops = flops / min(lat) / 1e12
     print(f"3d bf16 warm: segment_volume latency {lat!r} s; segment_volumes pipelined "
           f"{pipe_s!r} s/volume; peak device memory {peak_gb:.2f} GiB "
           f"(max_memory_allocated); network {flops / 1e12:.2f} TFLOP per volume "
           f"({n_patches} patches) = {tflops:.1f} TFLOP/s at the best latency, "
-          f"{100 * tflops / H100_BF16_TFLOPS:.2f}% of the dense bf16 peak; "
+          f"{100 * tflops / PEAK['bf16']:.2f}% of the dense bf16 peak; "
           f"nvidia-smi after: {smi}")
 
     trainer.unet = _Annotated(trainer.unet)
@@ -1140,16 +1161,14 @@ def _step_times(cfg: dict, fold) -> dict:
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) / n * 1e3
             out[(bs, tf32)] = (ms, torch.cuda.max_memory_allocated() / 2**30)
-        with FlopCounterMode(display=False) as fc:
-            t._train_step(state, batches[0], 0)
-        flops = fc.get_total_flops()
+        flops = compiled_flops(t._train_step, state, batches[0], 0)
         for tf32 in (True, False):
             ms, peak = out[(bs, tf32)]
             print(f"train2d step, batch {bs}, cuDNN TF32 {'on' if tf32 else 'off'}: "
                   f"{ms!r} ms/step = {bs / ms * 1e3!r} slices/s; peak device memory "
                   f"{peak!r} GiB; {flops / 1e9!r} GFLOP per step (FlopCounterMode, forward and "
                   f"backward) = {flops / ms / 1e9!r} TFLOP/s, "
-                  f"{100 * flops / ms / 1e9 / (H100_TF32_TFLOPS if tf32 else H100_FP32_TFLOPS)!r}%"
+                  f"{100 * flops / ms / 1e9 / (PEAK['tf32'] if tf32 else PEAK['fp32'])!r}%"
                   f" of the dense {'TF32' if tf32 else 'float32'} peak")
         t.unet.eval()
         if bs == TIMED_BATCHES[0]:
@@ -1399,11 +1418,9 @@ def _train3d_step_times(cfg: dict, train):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
-        with FlopCounterMode(display=False) as fc:
-            t._sample_step(state, draw, 99)
-        flops = fc.get_total_flops()
-        peak_tf, peak_name = ((H100_TF32_TFLOPS, "TF32") if dtype == torch.float32
-                              else (H100_BF16_TFLOPS, "bf16"))
+        flops = compiled_flops(t._sample_step, state, draw, 99)
+        peak_tf, peak_name = ((PEAK["tf32"], "TF32") if dtype == torch.float32
+                              else (PEAK["bf16"], "bf16"))
         tflops = flops / ms / 1e9
         print(f"{cell}: patch {patch} batch {bs} {str(dtype)[6:]}"
               f"{' (TF32 on)' if dtype == torch.float32 else ''}{' remat' if remat else ''}: "
@@ -1778,14 +1795,12 @@ def _ssl_step_times(cfgs: dict, data) -> dict:
         t.net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        with FlopCounterMode(display=False) as fc:
-            t._train_step(state, batches[0], 99)
-        flops = fc.get_total_flops()
+        flops = compiled_flops(t._train_step, state, batches[0], 99)
         tflops = flops / ms / 1e9
         print(f"{cell}: batch {bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} "
               f"ms/step = {bs / ms * 1e3!r} slices/s; {flops / 1e12!r} TFLOP per step "
               f"(FlopCounterMode: forward{'s' if kind != 'cr' else ''} and backward) = "
-              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"{tflops!r} TFLOP/s, {100 * tflops / PEAK['tf32']!r}% of the dense TF32 peak; "
               f"peak device memory {peak!r} GiB")
         if kind in ("cr", "global"):
             warm[kind] = (t, state, batches[0])
@@ -2229,15 +2244,13 @@ def _cls_step_times(cfg: dict, data) -> tuple:
         t.net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        with FlopCounterMode(display=False) as fc:
-            t._train_step(state, batches[0], 99)
-        flops = fc.get_total_flops()
+        flops = compiled_flops(t._train_step, state, batches[0], 99)
         tflops = flops / ms / 1e9
         print(f"{cell}: {'ResNet-18' if kind == 'resnet18' else 'encoder + MLP head'}, batch "
               f"{bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} ms/step = "
               f"{bs / ms * 1e3!r} slices/s; {flops / 1e12!r} TFLOP per step (FlopCounterMode: "
               f"forward and backward) = {tflops!r} TFLOP/s, "
-              f"{100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; peak device "
+              f"{100 * tflops / PEAK['tf32']!r}% of the dense TF32 peak; peak device "
               f"memory {peak!r} GiB")
         if kind == "resnet18":
             warm = (t, state, batches[0])
@@ -2702,9 +2715,7 @@ def _gan_step_times(cfg: dict, normal: np.ndarray):
         batches = [images.index_select(0, torch.as_tensor(p, device=images.device)) for p in plan]
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        with FlopCounterMode(display=False) as fc:
-            t._train_step(state, batches[0], 99)
-        flops = fc.get_total_flops()
+        flops = compiled_flops(t._train_step, state, batches[0], 99)
         tflops = flops / ms / 1e9
         g = t.generator.eval()
         m = random_ff_masks(torch.Generator(device=DEV).manual_seed(SEED), bs, (size, size),
@@ -2715,9 +2726,7 @@ def _gan_step_times(cfg: dict, normal: np.ndarray):
             with torch.inference_mode():
                 return g(x[:k], m[:k])
 
-        with FlopCounterMode(display=False) as fc:
-            infer(1)
-        infer_flops = fc.get_total_flops()
+        infer_flops = compiled_flops(infer, 1)
         inf16, inf1 = cuda_ms(infer, bs, iters=10), cuda_ms(infer, 1, iters=10)
         g.train()
         print(f"{cell}: {'SAGatedGenerator' if sa else 'GatedGenerator with contextual attention'} "
@@ -2725,7 +2734,7 @@ def _gan_step_times(cfg: dict, normal: np.ndarray):
               f"float32 (TF32 on for convs and matmuls): {ms!r} ms/step = {bs / ms * 1e3!r} "
               f"slices/s; {flops / 1e12!r} TFLOP per step (FlopCounterMode: G forward without "
               f"grad, D forward and backward twice, G forward and backward through D) = "
-              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"{tflops!r} TFLOP/s, {100 * tflops / PEAK['tf32']!r}% of the dense TF32 peak; "
               f"peak device memory {peak!r} GiB; generator inference {inf16!r} ms at batch {bs} "
               f"({bs / inf16 * 1e3!r} slices/s), {inf1!r} ms at batch 1 ({infer_flops / 1e9!r} "
               f"GFLOP a slice)")
@@ -3196,9 +3205,7 @@ def _ad_step_times(cfgs: dict, rsna: np.ndarray, labels: np.ndarray, att_images:
         net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        with FlopCounterMode(display=False) as fc:
-            t._train_step(state, batches[0], 99)
-        flops = fc.get_total_flops()
+        flops = compiled_flops(t._train_step, state, batches[0], 99)
         tflops = flops / ms / 1e9
         extra = ""
         if kind == "fcdd":
@@ -3213,7 +3220,7 @@ def _ad_step_times(cfgs: dict, rsna: np.ndarray, labels: np.ndarray, att_images:
                      f"per batch of {bs}")
         print(f"{cell}: {AD_CELLS[kind]}, batch {bs} of {size}^2, float32 (TF32 on): {ms!r} ms/step = {bs / ms * 1e3!r} slices/s; "
               f"{flops / 1e12!r} TFLOP per step (FlopCounterMode: forward and backward) = "
-              f"{tflops!r} TFLOP/s, {100 * tflops / H100_TF32_TFLOPS!r}% of the dense TF32 peak; "
+              f"{tflops!r} TFLOP/s, {100 * tflops / PEAK['tf32']!r}% of the dense TF32 peak; "
               f"peak device memory {peak!r} GiB{extra}")
         if kind == "ae":
             warm = (t, state, batches[0])
@@ -4009,6 +4016,100 @@ def phase_prep(work: str) -> None:
     check(not any(launches.values()), "prep: an EDT kernel ran on phase 13's path")
 
 
+# -- phase 14: the paired label-efficiency study -------------------------------
+
+@contextlib.contextmanager
+def _fold1_starts(starts: dict):
+    """Inside the block, each fine-tune's fold-1 net is recorded as it
+    starts training: ``starts[<arm>_frac<N>]`` = its weights on the host."""
+    train = UNet2D.train
+
+    def recording(self, dataset, valid_dataset=None, checkpoint_path=None):
+        fold_dir = os.path.dirname(checkpoint_path)
+        if os.path.basename(fold_dir) == "Fold_1":
+            starts[os.path.basename(os.path.dirname(fold_dir))] = {
+                k: v.detach().cpu().clone() for k, v in self.unet.state_dict().items()}
+        return train(self, dataset, valid_dataset, checkpoint_path)
+
+    UNet2D.train = recording
+    try:
+        yield starts
+    finally:
+        UNet2D.train = train
+
+
+def _study_transfers(out: str, starts: dict) -> None:
+    """Each pretrained arm's fold-1 nets start from its pretrained weights
+    (every key the U-Net shares with them, equal) and not from scratch's."""
+    for arm in STUDY_ARMS[1:]:
+        phase = study.PRETRAIN_PHASES[arm][-1]
+        pre = ckpt.load_params(os.path.join(out, phase, "pretrained.bin"))
+        for frac in STUDY_FRACTIONS:
+            tag = f"_frac{int(frac * 100)}"
+            start, scratch = starts[arm + tag], starts["scratch" + tag]
+            moved = [k for k in start
+                     if k in pre and tuple(pre[k].shape) == tuple(start[k].shape)]
+            equal = all(torch.equal(start[k], pre[k].cpu()) for k in moved)
+            differ = sum(not torch.equal(start[k], scratch[k]) for k in moved
+                         if start[k].is_floating_point())
+            print(f"study: {arm}{tag} fold 1 starts from {phase}/pretrained.bin: "
+                  f"{len(moved)} of {len(start)} keys moved, all equal: {equal}; "
+                  f"{differ} differ from scratch's fold-1 start")
+            check(moved and equal and differ, f"study: {arm}{tag}'s fold 1 does not start "
+                                              f"from the pretrained weights")
+
+
+def phase_study(work: str) -> dict:
+    """Phase 14: the paired label-efficiency study through its entry point
+    at its width, seed 42, three arms (one a pretrainer) at two fractions;
+    the table and the comparison with the JAX package's snapshots run. No
+    EDT kernel runs on it."""
+    edt.launches = edt.mask_launches = 0
+    # the study's mode, torch's defaults (cuDNN's convolutions in TF32,
+    # matmuls in float32), whatever an earlier phase left set
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    out = os.path.join(work, f"seed{STUDY_SEED}")
+    t0 = time.perf_counter()
+    with _unimportable(NOT_ON_THE_CARD), _fold1_starts({}) as starts:
+        results = study.main(out, seed=STUDY_SEED, arms=STUDY_ARMS,
+                             fractions=STUDY_FRACTIONS, device=DEV, scale=STUDY_SCALE)
+    wall = time.perf_counter() - t0
+    launches = _edt_launches()
+    n_folds = {**study.SCALE, **STUDY_SCALE}["n_folds"]
+    vals = [v for arm in STUDY_ARMS for f in STUDY_FRACTIONS for v in results[arm][str(f)]]
+    ok = (list(results) == list(STUDY_ARMS)
+          and all(len(results[arm][str(f)]) == n_folds
+                  for arm in STUDY_ARMS for f in STUDY_FRACTIONS)
+          and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals))
+    print(f"study (a) {', '.join(STUDY_ARMS)} at {STUDY_FRACTIONS} x {n_folds} folds, "
+          f"{STUDY_SCALE['n_epoch']} fine-tune and {STUDY_SCALE['pretrain_epochs']} pretraining "
+          f"epochs a phase, in {wall!r} s (TF32: cuDNN {torch.backends.cudnn.allow_tf32}, "
+          f"matmul {torch.backends.cuda.matmul.allow_tf32}): "
+          f"{json.dumps(results)}; {n_folds} finite Dice in [0, 1] per arm x fraction: {ok}")
+    check(ok, "study: results.json lacks a finite Dice in [0, 1] per arm x fraction x fold")
+    _study_transfers(out, starts)
+    with open(os.path.join(out, "label_efficiency_table.md")) as f:
+        table = f.read()
+    snap = os.path.join(work, "snapshots")
+    os.makedirs(snap)
+    shutil.copy(os.path.join(out, "results.json"), os.path.join(snap, f"seed{STUDY_SEED}.json"))
+    shutil.copy(os.path.join(out, "provenance.json"), snap)
+    apart = study.write_snapshot_docs(snap, "docs")
+    with open(os.path.join(snap, "comparison.md")) as f:
+        lines = f.read().splitlines()
+    rows = [ln for ln in lines if ln.startswith("| main |")]
+    ok = (table.count("\n") == 2 + len(STUDY_FRACTIONS)
+          and len(rows) == len(STUDY_FRACTIONS) * (2 * len(STUDY_ARMS) - 1)
+          and lines[0].startswith("Runs made with") and torch.__version__ in lines[0])
+    print(f"study (b) the table ({table.count(chr(10))} lines) and compare_to_reference "
+          f"against the JAX snapshots ({len(rows)} rows, {len(apart)} pairs of CIs apart at "
+          f"this cut; {lines[0]!r}): {ok}")
+    check(ok, "study: the table or the comparison is incomplete")
+    print(f"study: phase 14 in {time.perf_counter() - t0!r} s; EDT launches {launches}")
+    check(not any(launches.values()), "study: an EDT kernel ran on phase 14's path")
+    return launches
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -4040,11 +4141,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as work:
         phase_prep(work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_study_") as work:
+        study_launches = phase_study(work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
         "replaces": "ich_tpu/ops/pallas_edt.py:27", "launches": gan_launches[name],
-        "launches_by_path": {"gan_train": gan_launches[name], "edt_leg": main_launches[name]},
+        "launches_by_path": {"gan_train": gan_launches[name], "edt_leg": main_launches[name],
+                             "le_study": study_launches[name]},
         **edt_rows[name], "bound_by": "bytes", "library_ms": None,
     } for name in ("edt_envelope_pass", "distance_transform_edt_kernel")]
     print(json.dumps({"kernels": kernels}))

@@ -55,7 +55,9 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.experiments.data_preparation",
                  "ich_tpu_torch.experiments.figures", "ich_tpu_torch.native",
                  "ich_tpu_torch.postprocessing.plots",
-                 "ich_tpu_torch.postprocessing.analyse_exp"):
+                 "ich_tpu_torch.postprocessing.analyse_exp",
+                 "ich_tpu_torch.experiments.label_efficiency_study",
+                 "ich_tpu_torch.utils.profiling"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()
