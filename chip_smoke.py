@@ -248,14 +248,28 @@ its last line:
    equal) and not from scratch's; (b) the table and
    ``compare_to_reference`` against the JAX package's snapshots in
    ``docs/`` run, headed by the run's ``provenance.json``. The EDT
-   launches over phase 14 read 0.
+   launches over phase 14 read 0. Its nets, augmentation, corruption,
+   views and region cells are jax.random's draws (``utils/rng.py``);
+15. rng: jax.random's threefry streams computed on the card
+   (``ich_tpu_torch.utils.rng``, int64 torch ops there for a draw of
+   more than ``HOST_WORDS`` words): ``fold_in`` and ``split`` of
+   ``PRNGKey(42)`` and 2^17 + 3 words of bits, ``uniform`` and
+   ``truncated_normal`` held against ``RNG_KNOWN``, constants computed
+   with JAX 0.9.0 on the CPU (integers equal; floats within ``RNG_ULPS``
+   units in the last place, sums within that bound of each term), and
+   ``torch.equal`` to the same draws on this machine's CPU; the d4 f16
+   study U-Net and the ``configs/unet2d.json`` U-Net drawn from
+   ``prng_key(42)`` on the card (``init_like_flax``), held against
+   ``NET_KNOWN`` (flax's ``init`` checksums) and equal to the same nets
+   drawn on the CPU; the draws' and the inits' times. The EDT launches
+   over phase 15 read 0.
 
 Each path is driven with the kernel launch counts set to 0 just before and
-read just after (the training, SSL, phase 9, phase 11, 12, 13 and 14 paths
-must read 0). The line
+read just after (the training, SSL, phase 9, phase 11, 12, 13, 14 and 15
+paths must read 0). The line
 before the last is a JSON object with each EDT kernel's launches on the
 path that owns it (the GAN training of phase 10 (a)), its launches by path
-(phase 4's EDT leg and phase 14's study too), its error against the plain
+(phase 4's EDT leg and phases 14 and 15 too), its error against the plain
 version, both times and its bound; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -301,7 +315,6 @@ from ich_tpu_torch.experiments import data_preparation, figures, supervised2d
 from ich_tpu_torch.experiments import label_efficiency_study as study
 from ich_tpu_torch.experiments.label_efficiency import LOW_LABEL_RECIPE
 from ich_tpu_torch.experiments.pretrain_finetune import (
-    _seeded,
     build_encoder,
     build_partial_unet,
     label_efficiency_sweep,
@@ -353,9 +366,11 @@ from ich_tpu_torch.train.inpaint_ad import robust_anomaly_detect
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
+from ich_tpu_torch.utils import rng as prng
 from ich_tpu_torch.utils.profiling import compiled_flops, peak_hbm_tbs, peak_tflops, time_fn
 
 SEED = 0
+K = prng.prng_key  # a step's key from an int, as fit folds none
 GAN_SHAPE = (16, 256, 256)  # configs/inpainting_gan.json: batch 16, size 256
 BIG_SHAPE = (4, 512, 512)
 RAGGED_SHAPE = (3, 100, 37)
@@ -437,6 +452,37 @@ NATIVE_ROUNDS = 3
 # 64^2, its 5 folds), cut to 2 fine-tune epochs (40) and 1 pretraining epoch
 # a phase (30); one arm per pretrainer
 STUDY_SCALE = {"n_epoch": 2, "pretrain_epochs": 1}
+# phase 15's known answers: jax.random (JAX 0.9.0, threefry partitionable)
+# and flax 0.12.3's init on the CPU; tests/test_torch_rng.py holds them
+# against JAX itself
+RNG_WORDS = (1 << 17) + 3  # above utils/rng.HOST_WORDS: the card computes these draws
+RNG_ULPS = 4  # the port's erf_inv against XLA's (tests/test_torch_rng.py)
+RNG_KNOWN = {
+    "fold_in_7": [2547012911, 1371500959],
+    "split_3": [[1832780943, 270669613], [64467757, 2916123636], [2465931498, 255383827]],
+    "bits_sum": 280865998819178,  # random_bits(PRNGKey(42), (RNG_WORDS,))
+    "bits_head": [2098992034, 2919706841, 2646866425, 2409546199],
+    "bits_tail": [3331942309, 1591767782, 236451054, 381254960],
+    # uniform(fold_in(PRNGKey(42), 1), (RNG_WORDS,), -2.5, 4.0)
+    "uniform_head": [2.2298173904418945, 2.6211390495300293, -1.318987250328064,
+                     -0.7929035425186157],
+    "uniform_sum": 99059.95593553782,
+    # truncated_normal(fold_in(PRNGKey(42), 2), -2, 2, (RNG_WORDS,))
+    "tn_head": [0.4114566743373871, 0.5575056672096252, -1.0635087490081787,
+                -0.35603460669517517],
+    "tn_sum": 173.10044755474286,
+}
+# flax's init of the JAX UNet from PRNGKey(42), through from_jax: the count,
+# sum and sum of squares of every float entry of the state_dict, and the
+# first three weights of down_block.0.conv1
+NET_KNOWN = {
+    "study_d4f16": ({"depth": 4, "top_filter": 16, "midchannels_factor": 1}, {
+        "n": 484561, "sum": 1399.6155412227508, "sumsq": 2223.1658765916654,
+        "head": [0.19304624199867249, -0.307388037443161, -0.06207161024212837]}),
+    "unet2d_config": ({"depth": 5, "top_filter": 32, "midchannels_factor": 1}, {
+        "n": 7771297, "sum": 5893.321741513526, "sumsq": 9311.070218953422,
+        "head": [0.19304624199867249, -0.06207161024212837, 0.24375410377979279]}),
+}
 STUDY_FRACTIONS = (0.25, 1.0)
 STUDY_ARMS = ("scratch", "pretrained", "contrastive_local")
 STUDY_SEED = 42
@@ -1000,7 +1046,7 @@ def _trainer(cfg: dict, device, net: dict | None = None, mesh=None, **overrides)
     """A trainer of the config's net and training settings, ``net`` and
     ``overrides`` replacing some of them, on ``mesh`` if given."""
     tr = {**cfg["train"], **overrides}
-    return UNet2D(build_unet_from_cfg({**cfg["net"], **(net or {})}, seed=SEED),
+    return UNet2D(build_unet_from_cfg({**cfg["net"], **(net or {})}, seed=SEED, device=device),
                   n_epoch=tr["n_epoch"], batch_size=tr["batch_size"], lr=tr["lr"],
                   lr_scheduler=tr["lr_scheduler"], lr_scheduler_kwargs=tr["lr_scheduler_kwargs"],
                   loss_fn=tr["loss_fn"], loss_fn_kwargs=tr["loss_fn_kwargs"],
@@ -1116,19 +1162,20 @@ def _train_hold(cfg: dict, fold) -> None:
 def _warp_hold(cfg: dict, fold) -> None:
     """(c) the config's Compose with injected (m, o), card against CPU."""
     spec = cfg["data"]["augmentation"]["train"]
-    gen = torch.Generator().manual_seed(SEED)
+    keys = prng.split(K(SEED), len(spec))
     b, size = TIMED_BATCHES[0], cfg["data"]["size"]
-    params = [t.affine_params(gen, b, (size, size)) for t in build_pipeline(spec).transforms]
+    params = [t.affine_params(k, b, (size, size))
+              for k, t in zip(keys, build_pipeline(spec).transforms)]
 
     def injected():
         pipe = build_pipeline(spec)
         for t, (m, o) in zip(pipe.transforms, params):
-            t.affine_params = lambda g, bb, hw, m=m, o=o: (m.to(g.device), o.to(g.device))
+            t.affine_params = lambda key, bb, hw, m=m, o=o: (m, o)
         return pipe
 
     img, mask = (torch.from_numpy(a[:b]) for a in (fold.images, fold.masks))
-    want = injected()(torch.Generator(), img, mask)
-    got = injected()(torch.Generator(device=DEV), img.to(DEV), mask.to(DEV))
+    want = injected()(K(SEED), img, mask)
+    got = injected()(K(SEED), img.to(DEV), mask.to(DEV))
     err = float((got[0].cpu() - want[0]).abs().max())
     mask_eq = bool(torch.equal(got[1].cpu(), want[1]))
     print(f"train2d warp hold {tuple(img.shape)}: masks equal {mask_eq}, image max err {err!r} "
@@ -1152,16 +1199,16 @@ def _step_times(cfg: dict, fold) -> dict:
             torch.backends.cudnn.allow_tf32 = tf32
             n = 10 if bs <= 16 else 4
             for i in range(3):  # warm-up: cuDNN picks its algorithms per math mode
-                t._train_step(state, batches[i % 4], i)
+                t._train_step(state, batches[i % 4], K(i))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             for i in range(n):
-                t._train_step(state, batches[i % 4], i)
+                t._train_step(state, batches[i % 4], K(i))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) / n * 1e3
             out[(bs, tf32)] = (ms, torch.cuda.max_memory_allocated() / 2**30)
-        flops = compiled_flops(t._train_step, state, batches[0], 0)
+        flops = compiled_flops(t._train_step, state, batches[0], K(0))
         for tf32 in (True, False):
             ms, peak = out[(bs, tf32)]
             print(f"train2d step, batch {bs}, cuDNN TF32 {'on' if tf32 else 'off'}: "
@@ -1211,12 +1258,12 @@ def _train_profile(t: UNet2D, fold) -> None:
     batch = next(t._batches(data, np.arange(t.batch_size)[None]))
     t.unet.train()
     for i in range(3):
-        t._train_step(state, batch, i)
+        t._train_step(state, batch, K(i))
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._train_step(state, batch, 3)
+        t._train_step(state, batch, K(3))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t.unet.eval()
@@ -1264,7 +1311,7 @@ def _trainer3d(cfg: dict, device, patch, batch: int, dtype=torch.float32, remat=
                augment_fn=None) -> UNet3D:
     """The config's trainer and net (seeded), at another patch, batch,
     dtype or remat, with ``augment_fn``."""
-    net = build_unet3d_from_cfg(cfg["net"], seed=SEED, dtype=dtype, remat=remat)
+    net = build_unet3d_from_cfg(cfg["net"], seed=SEED, device=device, dtype=dtype, remat=remat)
     return build_trainer3d(cfg, net, device, patch_size=patch, batch_size=batch,
                            augment_fn=augment_fn)
 
@@ -1312,7 +1359,7 @@ def _hold3d_run(cfg: dict, dev, imgs: np.ndarray, msks: np.ndarray, threads: int
     x, y = (torch.from_numpy(a).to(t.device) for a in (imgs, msks))
     losses = []
     for i in range(3):
-        losses.append(float(t._step(state, x, y, t._generator(i))))
+        losses.append(float(t._step(state, x, y, t._generator(K(i)))))
         if i == 0:
             grad = torch.cat([p.grad.flatten().cpu() for p in t.unet.parameters()])
     return {"losses": losses, "grad": grad,
@@ -1408,17 +1455,17 @@ def _train3d_step_times(cfg: dict, train):
         draw = lambda gen, s=samplers[patch], bs=bs: s(gen, bs)  # noqa: E731
         t.unet.train()
         for i in range(3):  # warm-up: cuDNN picks its algorithms
-            t._sample_step(state, draw, i)
+            t._sample_step(state, draw, K(i))
         n = 4 if bs >= 64 else 10
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for i in range(n):
-            t._sample_step(state, draw, 3 + i)
+            t._sample_step(state, draw, K(3 + i))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops = compiled_flops(t._sample_step, state, draw, 99)
+        flops = compiled_flops(t._sample_step, state, draw, K(99))
         peak_tf, peak_name = ((PEAK["tf32"], "TF32") if dtype == torch.float32
                               else (PEAK["bf16"], "bf16"))
         tflops = flops / ms / 1e9
@@ -1453,7 +1500,7 @@ def _sampler_times(t: UNet3D, train, sampler, pos_frac: float) -> None:
             if name == "host":
                 return [t._to_device(a) for a in sample_patches(
                     rng, train, SAMPLER_BATCH, SAMPLER_PATCH, pos_frac)]
-            return sampler(t._generator(i), SAMPLER_BATCH)
+            return sampler(t._generator(K(i)), SAMPLER_BATCH)
 
         one(0)  # warm-up (the host sampler's positive-voxel cache)
         torch.cuda.synchronize()
@@ -1480,7 +1527,7 @@ def _train3d_profile(t: UNet3D, draw, state) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._sample_step(state, draw, 200)
+        t._sample_step(state, draw, K(200))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t.unet.eval()
@@ -1665,15 +1712,16 @@ def _ssl_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1, mes
     if kind == "cr":
         c = cfg["corruption"]
         return ContextRestoration(
-            build_unet_from_cfg({**cfg["net"], "use_final_activation": False}, seed=cfg["seed"]),
+            build_unet_from_cfg({**cfg["net"], "use_final_activation": False}, seed=cfg["seed"],
+                                device=device),
             n_swap=c["n_swap"], swap_w=c["swap_w"], swap_h=c["swap_h"], swap_rotate=c["rotate"],
             **tr)
     if kind == "global":
-        return Contrastive(build_encoder(cfg), tau=cfg["tau"], **tr)
+        return Contrastive(build_encoder(cfg, device=device), tau=cfg["tau"], **tr)
     lc = cfg["local"]
-    t = Contrastive(build_partial_unet(cfg), is_global=False, tau=lc["tau"], K=lc["K"],
-                    n_region=lc["n_region"], **tr)
-    t.transfer_weights(build_encoder(cfg).state_dict(), freeze=True)
+    t = Contrastive(build_partial_unet(cfg, device=device), is_global=False, tau=lc["tau"],
+                    K=lc["K"], n_region=lc["n_region"], **tr)
+    t.transfer_weights(build_encoder(cfg, device=device).state_dict(), freeze=True)
     return t
 
 
@@ -1690,7 +1738,7 @@ def _ssl_hold_run(kind: str, cfg: dict, dev, x, inject, threads: int) -> dict:
         t.aug = _TwoViews()
     orig = losses_mod.sample_region_cells
     if kind == "local":
-        losses_mod.sample_region_cells = lambda g, b, n, r: inject.to(g.device)
+        losses_mod.sample_region_cells = lambda key, b, n, r: inject
     try:
         t.train(x.device_cache(t.device))
     finally:
@@ -1715,12 +1763,12 @@ def _ssl_holds(cfgs: dict, data) -> None:
     n = torch.get_num_threads()
     x = LabeledSliceDataset(data.images[:SSL_HOLD_BATCH], data.labels[:SSL_HOLD_BATCH])
     size = tuple(data.images.shape[1:3])
-    gen = torch.Generator().manual_seed(SEED)
+    k_cr, k_local, k_swap, k_blur, k_crop = prng.split(K(SEED), 5)
     lc = cfgs["con"]["local"]
     side = size[0] // 2 ** (cfgs["con"]["net"]["depth"] - 1 - lc["n_decoder"]) // lc["K"]
-    injected = {"cr": _patch_swap(cfgs["cr"]).draw_geometry(gen, len(x), size), "global": None,
-                "local": torch.argsort(torch.rand((len(x), side * side), generator=gen),
-                                       dim=1)[:, :lc["n_region"]]}
+    injected = {"cr": _patch_swap(cfgs["cr"]).draw_geometry(k_cr, len(x), size), "global": None,
+                "local": losses_mod.sample_region_cells(k_local, len(x), side * side,
+                                                        lc["n_region"])}
     for kind, cfg in (("cr", cfgs["cr"]), ("global", cfgs["con"]), ("local", cfgs["con"])):
         card = _ssl_hold_run(kind, cfg, DEV, x, injected[kind], n)
         cpu = _ssl_hold_run(kind, cfg, "cpu", x, injected[kind], n)
@@ -1746,18 +1794,17 @@ def _ssl_holds(cfgs: dict, data) -> None:
     b = cfgs["cr"]["train"]["batch_size"]
     imgs = torch.from_numpy(data.images[:b, ..., None])
     swap = _patch_swap(cfgs["cr"])
-    geom = swap.draw_geometry(gen, b, size)
+    geom = swap.draw_geometry(k_swap, b, size)
     swap_eq = torch.equal(swap.apply(imgs.to(DEV), tuple(g.to(DEV) for g in geom)).cpu(),
                           swap.apply(imgs, geom))
     blur = T.GaussianBlur(0.5, (0.1, 2.0))
-    flags, sig = blur.draw(gen, b)
+    flags, sig = blur.draw(k_blur, b)
     blur_err = float((blur.apply_params(imgs.to(DEV), flags.to(DEV), sig.to(DEV)).cpu()
                       - blur.apply_params(imgs, flags, sig)).abs().max())
     crop = T.RandomCropResize((0.4, 0.8))
-    m, o = crop.affine_params(gen, b, size)
-    crop.affine_params = lambda g, bb, hw: (m.to(g.device), o.to(g.device))
-    crop_err = float((crop(torch.Generator(device=DEV), imgs.to(DEV)).cpu()
-                      - crop(torch.Generator(), imgs)).abs().max())
+    m, o = crop.affine_params(k_crop, b, size)
+    crop.affine_params = lambda key, bb, hw: (m, o)
+    crop_err = float((crop(k_crop, imgs.to(DEV)).cpu() - crop(k_crop, imgs)).abs().max())
     torch.backends.cudnn.allow_tf32 = True
     print(f"ssl transforms card vs cpu at {tuple(imgs.shape)}: RandomPatchSwap with injected "
           f"geometry equal {swap_eq}; GaussianBlur with injected draws max err {blur_err!r}; "
@@ -1770,12 +1817,12 @@ def _ssl_warm_ms(t, state, batches: list, n: int = 10) -> float:
     (cuDNN picks its algorithms), the peak memory counter reset after the
     warm-up."""
     for i in range(3):
-        t._train_step(state, batches[i % len(batches)], i)
+        t._train_step(state, batches[i % len(batches)], K(i))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(n):
-        t._train_step(state, batches[i % len(batches)], 3 + i)
+        t._train_step(state, batches[i % len(batches)], K(3 + i))
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
 
@@ -1795,7 +1842,7 @@ def _ssl_step_times(cfgs: dict, data) -> dict:
         t.net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops = compiled_flops(t._train_step, state, batches[0], 99)
+        flops = compiled_flops(t._train_step, state, batches[0], K(99))
         tflops = flops / ms / 1e9
         print(f"{cell}: batch {bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} "
               f"ms/step = {bs / ms * 1e3!r} slices/s; {flops / 1e12!r} TFLOP per step "
@@ -1838,7 +1885,7 @@ def _ssl_profile(t, state, batch) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._train_step(state, batch, 200)
+        t._train_step(state, batch, K(200))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t.net.eval()
@@ -2180,9 +2227,10 @@ def _cls_trainer(kind: str, cfg: dict, device, batch: int, n_epoch: int = 1):
     on the config's encoder (head ``MLP_head`` + 2 or 7), ``resnet18``."""
     tr = dict(n_epoch=n_epoch, batch_size=batch, lr=cfg["train"]["lr"], seed=SEED, device=device)
     if kind == "resnet18":
-        return BinaryClassifier(_seeded(SEED, lambda: resnet18(num_classes=2)), **tr)
+        with torch.device(device):
+            return BinaryClassifier(resnet18(num_classes=2, key=K(SEED)), **tr)
     n_out = 7 if kind == "multi" else 2
-    enc = build_encoder(cfg, tuple(cfg["net"]["MLP_head"]) + (n_out,))
+    enc = build_encoder(cfg, tuple(cfg["net"]["MLP_head"]) + (n_out,), device=device)
     return (MultiClassifier if kind == "multi" else BinaryClassifier)(enc, **tr)
 
 
@@ -2244,7 +2292,7 @@ def _cls_step_times(cfg: dict, data) -> tuple:
         t.net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops = compiled_flops(t._train_step, state, batches[0], 99)
+        flops = compiled_flops(t._train_step, state, batches[0], K(99))
         tflops = flops / ms / 1e9
         print(f"{cell}: {'ResNet-18' if kind == 'resnet18' else 'encoder + MLP head'}, batch "
               f"{bs} of {tuple(data.images.shape[1:3])}, float32 (TF32 on): {ms!r} ms/step = "
@@ -2275,7 +2323,7 @@ def _cls_profile(t, state, batch) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._train_step(state, batch, 300)
+        t._train_step(state, batch, K(300))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t.net.eval()
@@ -2402,8 +2450,9 @@ def _gan_trainer(cfg: dict, device, batch: int, self_attention: bool = True,
     """A full-width SN-PatchGAN from seeded weights."""
     n, tr = cfg["net"], cfg["train"]
     g_cls = SAGatedGenerator if self_attention else GatedGenerator
-    g = _seeded(SEED, lambda: g_cls(lat_channels=n["lat_channels"]))
-    d = _seeded(SEED + 1, lambda: PatchDiscriminator(out_channels=tuple(n["disc_channels"])))
+    kg, kd = prng.split(K(SEED))
+    g = g_cls(lat_channels=n["lat_channels"], key=kg)
+    d = PatchDiscriminator(out_channels=tuple(n["disc_channels"]), key=kd)
     return SNPatchGAN(g, d, n_epoch=n_epoch, batch_size=batch, lr_g=tr["lr_g"], lr_d=tr["lr_d"],
                       lambda_L1=tr["lambda_L1"], lambda_gan=tr["lambda_gan"],
                       gammaL1=tr["gammaL1"], mask_kwargs=cfg["mask"], seed=SEED, device=device)
@@ -2568,7 +2617,7 @@ def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
     runs = []
     for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))):
         torch.set_num_threads(threads)
-        g = _seeded(SEED, lambda: GatedGenerator(lat_channels=cfg["net"]["lat_channels"]))
+        g = GatedGenerator(lat_channels=cfg["net"]["lat_channels"], key=K(SEED))
         g = g.double().to(dev).train()
         fine, coarse = g(imgs.to(dev), m.to(dev))
         loss = torch.mean(torch.abs(fine - imgs.to(dev)) * m.to(dev)) + torch.mean(
@@ -2715,7 +2764,7 @@ def _gan_step_times(cfg: dict, normal: np.ndarray):
         batches = [images.index_select(0, torch.as_tensor(p, device=images.device)) for p in plan]
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops = compiled_flops(t._train_step, state, batches[0], 99)
+        flops = compiled_flops(t._train_step, state, batches[0], K(99))
         tflops = flops / ms / 1e9
         g = t.generator.eval()
         m = random_ff_masks(torch.Generator(device=DEV).manual_seed(SEED), bs, (size, size),
@@ -2757,7 +2806,7 @@ def _gan_profile(t, state, batch) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._train_step(state, batch, 400)
+        t._train_step(state, batch, K(400))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     print(_profile_summary(prof, wall_ms, f"gan profile (one warm gan_sa_bs16 step, batch "
@@ -3038,7 +3087,7 @@ def _ad_hold_step(kind: str, t, state, args: list):
         return t._step(state, args[0], None)
     if kind == "fcdd":
         return t._step(state, args[0], args[1], None, ellipses=args[2], u=args[3])
-    return t._step(state, args[0], args[1], t._generator(SEED))
+    return t._step(state, args[0], args[1], K(SEED))
 
 
 def _ad_hold_run(kind: str, cfgs: dict, dev, inputs: list, threads: int) -> dict:
@@ -3205,7 +3254,7 @@ def _ad_step_times(cfgs: dict, rsna: np.ndarray, labels: np.ndarray, att_images:
         net.train()
         ms = _ssl_warm_ms(t, state, batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops = compiled_flops(t._train_step, state, batches[0], 99)
+        flops = compiled_flops(t._train_step, state, batches[0], K(99))
         tflops = flops / ms / 1e9
         extra = ""
         if kind == "fcdd":
@@ -3247,7 +3296,7 @@ def _ad_profile(t, state, batch) -> None:
                                             torch.profiler.ProfilerActivity.CUDA],
                                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        t._train_step(state, batch, 500)
+        t._train_step(state, batch, K(500))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t.net.eval()
@@ -3387,7 +3436,7 @@ def _mg_unet2d(mesh, work: str, log) -> UNet2D:
                                  n_volumes=TRAIN_FOLD[1], seed=SEED)
     x, y = (torch.from_numpy(a[:bs]).to(dev) for a in (train.images, train.masks))
     torch.backends.cudnn.allow_tf32 = False
-    step = lambda t, state, i: t._step(state, x, y, t._generator(i))  # noqa: E731
+    step = lambda t, state, i: t._step(state, x, y, K(i))  # noqa: E731
     runs = [_mg_steps(_trainer(cfg, dev, net={"p_dropout": 0.0}, mesh=m), 1, step)
             for m in (None, mesh)]
     _mg_hold(f"train2d (batch {bs} of {cfg['data']['size']}^2, world {mesh.size})", *runs, log)
@@ -3414,7 +3463,7 @@ def _mg_unet2d(mesh, work: str, log) -> UNet2D:
     for t in trainers.values():
         t.unet.train()
     ms = _mg_turns({name: (lambda i, name=name: trainers[name]._train_step(
-        states[name], batches[i % 4], i)) for name in trainers}, MG_TIMED_STEPS)
+        states[name], batches[i % 4], K(i))) for name in trainers}, MG_TIMED_STEPS)
     params = list(trainers["dp"].unet.parameters())
     n_bytes = parallel.average_gradients(params, mesh)
     ar_ms = cuda_ms(lambda: parallel.average_gradients(params, mesh))
@@ -3427,7 +3476,7 @@ def _mg_unet2d(mesh, work: str, log) -> UNet2D:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t._train_step(states["dp"], batches[0], MG_TIMED_STEPS)
+        t._train_step(states["dp"], batches[0], K(MG_TIMED_STEPS))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     log(_profile_summary(prof, wall_ms, f"multigpu train2d_bs16 dp profile (one warm step, "
@@ -3452,8 +3501,9 @@ def _mg_unet3d(mesh, work: str, log) -> None:
     x, y = (torch.from_numpy(np.stack([a[z:z + pd, h:h + ph, w:w + pw] for z, h, w in starts])
                              .astype(np.float32)).to(dev) for a in (vol, mask))
     torch.backends.cudnn.allow_tf32 = False
-    step = lambda t, state, i: t._step(state, x, y, t._generator(i))  # noqa: E731
-    runs = [_mg_steps(build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=SEED), dev,
+    step = lambda t, state, i: t._step(state, x, y, t._generator(K(i)))  # noqa: E731
+    runs = [_mg_steps(build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=SEED,
+                                                                 device=dev), dev,
                                       batch_size=bs, mesh=m), cfg["train"]["steps_per_epoch"],
                       step)
             for m in (None, mesh)]
@@ -3472,7 +3522,7 @@ def _mg_ssl(mesh, work: str, log) -> None:
     torch.backends.cudnn.allow_tf32 = False
     for kind, bs in (("global", 64), ("cr", 32)):
         x = torch.from_numpy(data.images[:bs]).to(dev)
-        step = lambda t, state, i: t._step(state, x, t._generator(i))  # noqa: E731
+        step = lambda t, state, i: t._step(state, x, K(i))  # noqa: E731
         runs = [_mg_steps(_ssl_trainer(kind, cfgs[kind], dev, bs, mesh=m), 1, step)
                 for m in (None, mesh)]
         _mg_hold(f"ssl {kind} (batch {bs}, world {mesh.size})", *runs, log)
@@ -3483,7 +3533,7 @@ def _mg_ssl(mesh, work: str, log) -> None:
     states = {name: t._train_state(1) for name, t in trainers.items()}
     for t in trainers.values():
         t.net.train()
-    ms = _mg_turns({name: (lambda i, name=name: trainers[name]._train_step(states[name], x, i))
+    ms = _mg_turns({name: (lambda i, name=name: trainers[name]._train_step(states[name], x, K(i)))
                     for name in trainers}, MG_TIMED_STEPS)
     log(f"multigpu ssl_contrastive_global_bs64 warm step, TF32 on, world {mesh.size}: dp "
         f"{ms['dp']!r} ms, plain {ms['plain']!r} ms (turns plain, dp, dp, plain)")
@@ -4059,6 +4109,95 @@ def _study_transfers(out: str, starts: dict) -> None:
                                               f"from the pretrained weights")
 
 
+def _ulps(a, b) -> int:
+    """The largest distance between two float32 sequences in units in the
+    last place."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int(np.abs(ia - ib).max())
+
+
+def _sum_bound(x: torch.Tensor) -> float:
+    """How far a float64 sum of float32 terms may move when each term is
+    ``RNG_ULPS`` units in the last place off."""
+    return float(x.double().abs().sum()) * RNG_ULPS * 2.0 ** -23
+
+
+def phase_rng() -> dict:
+    """15. jax.random's threefry streams and flax's init on the card, held
+    against JAX's constants and this machine's CPU; returns the EDT
+    launches over the phase."""
+    edt.launches = edt.mask_launches = 0
+    key = prng.prng_key(42)
+    keys_ok = (prng.fold_in(key, 7).tolist() == RNG_KNOWN["fold_in_7"]
+               and prng.split(key, 3).tolist() == RNG_KNOWN["split_3"])
+    print(f"rng keys of PRNGKey(42): fold_in(., 7) and split(., 3) equal JAX's {keys_ok}")
+    check(keys_ok, "rng: keys differ from jax.random's")
+
+    def draws(dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (prng.random_bits(key, (RNG_WORDS,), device=dev),
+               prng.uniform(prng.fold_in(key, 1), (RNG_WORDS,), -2.5, 4.0, device=dev),
+               prng.truncated_normal(prng.fold_in(key, 2), -2.0, 2.0, (RNG_WORDS,), device=dev))
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    draws(DEV)  # warm-up
+    (bits, u, tn), card_ms = draws(DEV)
+    (bits_c, u_c, tn_c), cpu_ms = draws("cpu")
+    check(bits.device.type == "cuda", "rng: the draws did not run on the card")
+    bits_ok = (int(bits.sum()) == RNG_KNOWN["bits_sum"]
+               and bits[:4].tolist() == RNG_KNOWN["bits_head"]
+               and bits[-4:].tolist() == RNG_KNOWN["bits_tail"])
+    floats = {}
+    for name, x in (("uniform", u), ("tn", tn)):
+        dsum = abs(float(x.double().sum()) - RNG_KNOWN[f"{name}_sum"])
+        floats[name] = (_ulps(x[:4].cpu(), RNG_KNOWN[f"{name}_head"]), dsum, _sum_bound(x))
+    same = all(torch.equal(a.cpu(), b) for a, b in ((bits, bits_c), (u, u_c), (tn, tn_c)))
+    print(f"rng draws on the card, {RNG_WORDS} words each: bits equal JAX's (sum, head, tail) "
+          f"{bits_ok}; uniform head {floats['uniform'][0]} ulp, sum off by "
+          f"{floats['uniform'][1]!r} (bound {floats['uniform'][2]!r}); truncated_normal head "
+          f"{floats['tn'][0]} ulp, sum off by {floats['tn'][1]!r} (bound {floats['tn'][2]!r}); "
+          f"tolerance {RNG_ULPS} ulp; card equals this machine's CPU (torch.equal) {same}; "
+          f"the three draws {card_ms!r} ms on the card, {cpu_ms!r} ms on the CPU")
+    check(bits_ok, "rng: the card's bits differ from jax.random's")
+    check(all(h <= RNG_ULPS and d <= b for h, d, b in floats.values()),
+          "rng: the card's floats differ from jax.random's")
+    check(same, "rng: card and cpu draws differ")
+
+    for name, (net_cfg, known) in NET_KNOWN.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = supervised2d.build_unet_from_cfg(net_cfg, seed=42, device=DEV)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu = supervised2d.build_unet_from_cfg(net_cfg, seed=42)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        sd, sd_c = card.state_dict(), cpu.state_dict()
+        check(next(card.parameters()).device.type == "cuda", "rng: the net was not on the card")
+        equal = sd.keys() == sd_c.keys() and all(torch.equal(sd[k].cpu(), sd_c[k]) for k in sd)
+        flat = torch.cat([v.flatten().double() for v in sd.values() if v.is_floating_point()])
+        dsum = abs(float(flat.sum()) - known["sum"])
+        dsq = abs(float((flat ** 2).sum()) - known["sumsq"]) / known["sumsq"]
+        head = _ulps(sd["down_block.0.conv1.weight"].flatten()[:3].cpu(), known["head"])
+        n_params = sum(p.numel() for p in card.parameters())
+        print(f"rng init {name} ({net_cfg}, {n_params} parameters) from prng_key(42): "
+              f"{flat.numel()} float entries (JAX {known['n']}), sum off by {dsum!r} (bound "
+              f"{_sum_bound(flat)!r}), sum of squares rel diff {dsq!r} (tolerance 1e-6), head "
+              f"{head} ulp; card equals this machine's CPU (torch.equal) {equal}; init "
+              f"{card_ms!r} ms on the card, {cpu_ms!r} ms on the CPU")
+        check(flat.numel() == known["n"] and dsum <= _sum_bound(flat) and dsq <= 1e-6
+              and head <= RNG_ULPS, f"rng: {name} differs from flax's init")
+        check(equal, f"rng: {name} drawn on the card differs from the CPU's")
+        del card, cpu, sd, sd_c
+    launches = _edt_launches()
+    print(f"rng port kernel launches over the phase {launches}")
+    check(not any(launches.values()), "rng: an EDT kernel launched")
+    return launches
+
+
 def phase_study(work: str) -> dict:
     """Phase 14: the paired label-efficiency study through its entry point
     at its width, seed 42, three arms (one a pretrainer) at two fractions;
@@ -4144,12 +4283,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_study_") as work:
         study_launches = phase_study(work)
+    torch.cuda.empty_cache()
+    rng_launches = phase_rng()
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
         "replaces": "ich_tpu/ops/pallas_edt.py:27", "launches": gan_launches[name],
         "launches_by_path": {"gan_train": gan_launches[name], "edt_leg": main_launches[name],
-                             "le_study": study_launches[name]},
+                             "le_study": study_launches[name], "rng": rng_launches[name]},
         **edt_rows[name], "bound_by": "bytes", "library_ms": None,
     } for name in ("edt_envelope_pass", "distance_transform_edt_kernel")]
     print(json.dumps({"kernels": kernels}))

@@ -32,22 +32,26 @@ import torch
 
 from ich_tpu_torch.data.core import SliceDataset2D
 from ich_tpu_torch.data.segich import load_segich_2d
-from ich_tpu_torch.experiments.pretrain_finetune import _seeded, load_pretrain_data
+from ich_tpu_torch.experiments.pretrain_finetune import load_pretrain_data
 from ich_tpu_torch.models.ae import AENet
 from ich_tpu_torch.ops import morphology as morph
 from ich_tpu_torch.ops.metrics import pixel_auc
 from ich_tpu_torch.postprocessing.update_pred import slice_score_row, write_prediction_scores
 from ich_tpu_torch.train.ae_trainer import AE
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.utils.logging import setup_logger
+from ich_tpu_torch.utils import rng
 
 
 def build_ae(cfg: dict, device: str | torch.device = "cuda") -> AE:
     """The config's AE trainer, the net's weights drawn from ``seed``."""
     n, tr, seed = cfg.get("net", {}), cfg["train"], cfg.get("seed", 42)
-    net = _seeded(seed, lambda: AENet(
-        latent_channels=n.get("latent_channels", 64),
-        bottleneck_channels=n.get("bottelneck_channels", 64), n_conv=n.get("n_conv", 3),
-        bilinear=n.get("bilinear", False), kernel_size=n.get("kernel_size", 5)))
+    with torch.device(resolve_device(device)):  # the weights drawn on the device
+        net = AENet(
+            latent_channels=n.get("latent_channels", 64),
+            bottleneck_channels=n.get("bottelneck_channels", 64), n_conv=n.get("n_conv", 3),
+            bilinear=n.get("bilinear", False), kernel_size=n.get("kernel_size", 5),
+            key=rng.prng_key(seed))
     return AE(net, lambda_GDL=tr.get("lambda_GDL"), n_epoch=tr["n_epoch"],
               batch_size=tr["batch_size"], lr=tr["lr"], seed=seed, device=device)
 

@@ -20,10 +20,12 @@ import numpy as np
 import torch
 
 from ich_tpu_torch.data.core import LabeledSliceDataset
-from ich_tpu_torch.experiments.pretrain_finetune import _seeded, load_pretrain_data
+from ich_tpu_torch.experiments.pretrain_finetune import load_pretrain_data
 from ich_tpu_torch.models.resnet import FACTORIES
 from ich_tpu_torch.train.classifier import BinaryClassifier
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.utils.logging import setup_logger
+from ich_tpu_torch.utils import rng
 
 
 def run_binary_resnet(cfg: dict, dataset, device: str | torch.device = "cuda") -> str:
@@ -31,7 +33,9 @@ def run_binary_resnet(cfg: dict, dataset, device: str | torch.device = "cuda") -
     with multilabel rows); returns the output dir."""
     data = LabeledSliceDataset(dataset.images, np.asarray(dataset.labels)[:, 0].astype(np.int32))
     seed = cfg.get("seed", 42)
-    net = _seeded(seed, lambda: FACTORIES[cfg["net"].get("name", "ResNet18")](num_classes=2))
+    with torch.device(resolve_device(device)):  # the weights drawn on the device
+        net = FACTORIES[cfg["net"].get("name", "ResNet18")](num_classes=2,
+                                                            key=rng.prng_key(seed))
     tr = cfg["train"]
     clf = BinaryClassifier(
         net, n_epoch=tr["n_epoch"], batch_size=tr["batch_size"], lr=tr["lr"],

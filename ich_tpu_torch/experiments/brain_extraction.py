@@ -30,7 +30,7 @@ def train_on_all(cfg: dict, out_dir: str, device: str | torch.device = "cuda") -
                                size=cfg["data"]["size"])
     tr = cfg["train"]
     seed = cfg.get("seed", 42)
-    trainer = UNet2D(build_unet_from_cfg(cfg["net"], seed=seed),
+    trainer = UNet2D(build_unet_from_cfg(cfg["net"], seed=seed, device=device),
                      n_epoch=tr["n_epoch"], batch_size=tr["batch_size"], lr=tr["lr"],
                      loss_fn=tr.get("loss_fn", "BinaryDiceLoss"),
                      loss_fn_kwargs=tr.get("loss_fn_kwargs", {"reduction": "mean"}),

@@ -31,12 +31,14 @@ import torch
 
 from ich_tpu_torch.data.core import LabeledSliceDataset
 from ich_tpu_torch.data.segich import load_segich_2d
-from ich_tpu_torch.experiments.pretrain_finetune import _seeded, load_pretrain_data
+from ich_tpu_torch.experiments.pretrain_finetune import load_pretrain_data
 from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG
 from ich_tpu_torch.ops.metrics import pixel_auc
 from ich_tpu_torch.postprocessing.update_pred import slice_score_row, write_prediction_scores
 from ich_tpu_torch.train.fcdd_trainer import FCDD
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.utils.logging import setup_logger
+from ich_tpu_torch.utils import rng
 
 MIN_MAX_SLICES = 512  # the slices whose heatmaps set the display range
 
@@ -44,7 +46,9 @@ MIN_MAX_SLICES = 512  # the slices whose heatmaps set the display range
 def build_fcdd(cfg: dict, device: str | torch.device = "cuda") -> FCDD:
     """The config's FCDD trainer, the net's weights drawn from ``seed``."""
     an, tr, seed = cfg.get("anomaly", {}), cfg["train"], cfg.get("seed", 42)
-    return FCDD(_seeded(seed, FCDD_CNN_VGG), artificial_anomaly=an.get("artificial", True),
+    with torch.device(resolve_device(device)):  # the weights drawn on the device
+        net = FCDD_CNN_VGG(key=rng.prng_key(seed))
+    return FCDD(net, artificial_anomaly=an.get("artificial", True),
                 anomaly_proba=an.get("proba", 0.5), drawing_params=an.get("drawing_params", {}),
                 gauss_std=an.get("gauss_std"), n_epoch=tr["n_epoch"],
                 batch_size=tr["batch_size"], lr=tr["lr"], seed=seed, device=device)

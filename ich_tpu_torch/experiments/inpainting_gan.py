@@ -24,28 +24,32 @@ import numpy as np
 import torch
 
 from ich_tpu_torch.data.core import LabeledSliceDataset
-from ich_tpu_torch.experiments.pretrain_finetune import _seeded, load_pretrain_data
+from ich_tpu_torch.experiments.pretrain_finetune import load_pretrain_data
 from ich_tpu_torch.models.inpainting import GatedGenerator, PatchDiscriminator, SAGatedGenerator
 from ich_tpu_torch.train.gan import SNPatchGAN
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.utils.logging import setup_logger
+from ich_tpu_torch.utils import rng
 
 DISC_CHANNELS = (64, 128, 256, 256, 256, 256)
 
 
-def build_gan_nets(cfg: dict):
-    """The config's generator and discriminator, weights from seeds
-    ``seed`` and ``seed + 1``."""
+def build_gan_nets(cfg: dict, device: str | torch.device = "cpu"):
+    """The config's generator and discriminator, built on ``device``, their
+    weights flax's ``init`` from the two halves of ``split(PRNGKey(seed))``,
+    as the JAX trainer draws them."""
     n, seed = cfg["net"], cfg.get("seed", 42)
     gen_cls = SAGatedGenerator if n.get("self_attention", True) else GatedGenerator
-    g = _seeded(seed, lambda: gen_cls(lat_channels=n.get("lat_channels", 32), return_coarse=True,
-                                      remat=bool(n.get("remat", False))))
-    d = _seeded(seed + 1, lambda: PatchDiscriminator(
-        out_channels=tuple(n.get("disc_channels", DISC_CHANNELS))))
+    kg, kd = rng.split(rng.prng_key(seed))
+    with torch.device(resolve_device(device)):
+        g = gen_cls(lat_channels=n.get("lat_channels", 32), return_coarse=True,
+                    remat=bool(n.get("remat", False)), key=kg)
+        d = PatchDiscriminator(out_channels=tuple(n.get("disc_channels", DISC_CHANNELS)), key=kd)
     return g, d
 
 
 def build_gan(cfg: dict, device: str | torch.device = "cuda") -> SNPatchGAN:
-    g, d = build_gan_nets(cfg)
+    g, d = build_gan_nets(cfg, device)
     tr = cfg["train"]
     return SNPatchGAN(
         g, d, n_epoch=tr["n_epoch"], batch_size=tr["batch_size"],

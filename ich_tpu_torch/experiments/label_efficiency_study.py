@@ -25,8 +25,9 @@ for a directory of per-seed snapshots (``seedNN.json``,
 package's (``REFERENCE_DIR/label_efficiency_seedNN.json``).
 
 Writes ``results.json``, ``provenance.json`` (per arm: the torch and CUDA
-versions, the device's name and the TF32 modes it ran in), a markdown
-table and, where matplotlib is installed, the curve figure.
+versions, the device's name, the TF32 modes it ran in and the draw
+scheme), a markdown table and, where matplotlib is installed, the curve
+figure.
 """
 
 from __future__ import annotations
@@ -206,14 +207,20 @@ def _last_losses(out_root: str, arm: str) -> Dict[str, float]:
     return losses
 
 
+# the random streams of a run: initial nets, augmentation, corruption, views
+# and region cells are jax.random's threefry draws (utils/rng.py), dropout
+# a torch generator seeded from its key
+DRAWS = "threefry2x32, jax.random 0.9.0 partitionable; dropout torch"
+
+
 def _provenance(dev: torch.device) -> dict:
-    """What a run's Dice depends on beyond the study's code: torch (whose
-    version sets the initial nets one seed draws), CUDA, the device and the
-    TF32 modes."""
+    """What a run's Dice depends on beyond the study's code: torch, CUDA,
+    the device, the TF32 modes and the draw scheme."""
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "draws": DRAWS}
 
 
 def main(out_root: str, seed: int = 42,
@@ -479,7 +486,8 @@ def _provenance_line(port_dir: str) -> str:
         i = json.loads(info)
         parts.append(f"{', '.join(arms)}: torch {i['torch']} (CUDA {i['cuda']}) on "
                      f"{i['device']}, cuDNN TF32 {'on' if i['cudnn_tf32'] else 'off'}, "
-                     f"matmul TF32 {'on' if i['matmul_tf32'] else 'off'}")
+                     f"matmul TF32 {'on' if i['matmul_tf32'] else 'off'}"
+                     + (f", draws {i['draws']}" if "draws" in i else ""))
     return "Runs made with " + "; ".join(parts) + ".\n\n"
 
 

@@ -51,8 +51,9 @@ from ich_tpu_torch.experiments.supervised2d import (
 )
 from ich_tpu_torch.models.unet import PartialUNet, UNetEncoder
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
-from ich_tpu_torch.utils import preemption
+from ich_tpu_torch.utils import preemption, rng
 from ich_tpu_torch.utils.logging import setup_logger
 
 logger = logging.getLogger(__name__)
@@ -68,38 +69,35 @@ def _abort_if_preempted(phase: str) -> None:
         raise SystemExit(143)
 
 
-def _seeded(seed: int, build: Callable):
-    """``build()`` with torch's generator seeded (and restored after)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return build()
-
-
 def _phase_dir(cfg: dict, phase: str) -> str:
     out_dir = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"], phase)
     os.makedirs(out_dir, exist_ok=True)
     return out_dir
 
 
-def build_encoder(cfg: dict, mlp_head: Optional[Tuple[int, ...]] = None) -> UNetEncoder:
+def build_encoder(cfg: dict, mlp_head: Optional[Tuple[int, ...]] = None,
+                  device: str | torch.device = "cpu") -> UNetEncoder:
     """The global phase's encoder (or, with ``mlp_head``, the classifier's);
     the defaults are ``build_unet_from_cfg``'s, so that its weights move
-    into the fine-tune U-Net."""
+    into the fine-tune U-Net. Built on ``device``."""
     n = cfg["net"]
     head = mlp_head or tuple(n.get("MLP_head", (256, 128)))
-    return _seeded(cfg.get("seed", 42), lambda: UNetEncoder(
-        depth=n.get("depth", 5), top_filter=n.get("top_filter", 64),
-        midchannels_factor=n.get("midchannels_factor", 2),
-        mlp_head=head, p_dropout=n.get("p_dropout", 0.0)))
+    with torch.device(resolve_device(device)):
+        return UNetEncoder(
+            depth=n.get("depth", 5), top_filter=n.get("top_filter", 64),
+            midchannels_factor=n.get("midchannels_factor", 2), mlp_head=head,
+            p_dropout=n.get("p_dropout", 0.0), key=rng.prng_key(cfg.get("seed", 42)))
 
 
-def build_partial_unet(cfg: dict) -> PartialUNet:
-    """The local phase's partial U-Net."""
+def build_partial_unet(cfg: dict, device: str | torch.device = "cpu") -> PartialUNet:
+    """The local phase's partial U-Net, built on ``device``."""
     n, lc = cfg["net"], cfg["local"]
-    return _seeded(cfg.get("seed", 42), lambda: PartialUNet(
-        depth=n.get("depth", 5), n_decoder=lc.get("n_decoder", 3),
-        top_filter=n.get("top_filter", 64), midchannels_factor=n.get("midchannels_factor", 2),
-        head_channel=tuple(lc.get("head_channel", (64, 32))), p_dropout=n.get("p_dropout", 0.0)))
+    with torch.device(resolve_device(device)):
+        return PartialUNet(
+            depth=n.get("depth", 5), n_decoder=lc.get("n_decoder", 3),
+            top_filter=n.get("top_filter", 64), midchannels_factor=n.get("midchannels_factor", 2),
+            head_channel=tuple(lc.get("head_channel", (64, 32))),
+            p_dropout=n.get("p_dropout", 0.0), key=rng.prng_key(cfg.get("seed", 42)))
 
 
 def _train_kwargs(tr: dict) -> dict:
@@ -113,7 +111,8 @@ def pretrain_context_restoration(cfg: dict, dataset, device: str | torch.device 
                                  ) -> StateDict:
     """Context-restoration pretraining; returns the pretrained weights."""
     seed = cfg.get("seed", 42)
-    net = build_unet_from_cfg({**cfg["net"], "use_final_activation": False}, seed=seed)
+    net = build_unet_from_cfg({**cfg["net"], "use_final_activation": False}, seed=seed,
+                              device=device)
     corruption = cfg.get("corruption", {})
     cr = ContextRestoration(
         net, n_swap=corruption.get("n_swap", 10), swap_w=corruption.get("swap_w", (10, 30)),
@@ -143,7 +142,7 @@ def pretrain_contrastive(cfg: dict, dataset, local_dataset=None, aug_pipeline=No
     ``aug_pipeline`` replaces the default views in both phases and
     ``local_aug_pipeline`` in the local phase only."""
     seed = cfg.get("seed", 42)
-    glob = Contrastive(build_encoder(cfg), is_global=True, tau=cfg.get("tau", 0.5),
+    glob = Contrastive(build_encoder(cfg, device=device), is_global=True, tau=cfg.get("tau", 0.5),
                        aug_pipeline=aug_pipeline, seed=seed, device=device,
                        **_train_kwargs(cfg["train"]))
     out_dir = _phase_dir(cfg, "pretrain_global")
@@ -157,7 +156,7 @@ def pretrain_contrastive(cfg: dict, dataset, local_dataset=None, aug_pipeline=No
     if lc:
         tr = cfg["train"]
         local = Contrastive(
-            build_partial_unet(cfg), is_global=False, tau=lc.get("tau", 0.5),
+            build_partial_unet(cfg, device=device), is_global=False, tau=lc.get("tau", 0.5),
             K=lc.get("K", 3), n_region=lc.get("n_region", 13),
             aug_pipeline=local_aug_pipeline or aug_pipeline,
             n_epoch=lc.get("n_epoch", tr["n_epoch"]),
@@ -181,7 +180,8 @@ def pretrain_classifier(cfg: dict, dataset, multi: bool = False,
     (2,)`` or ``+ (7,)``; returns the pretrained weights."""
     tr = cfg["train"]
     n_out = 7 if multi else 2
-    enc = build_encoder(cfg, tuple(cfg["net"].get("MLP_head", (256,))) + (n_out,))
+    enc = build_encoder(cfg, tuple(cfg["net"].get("MLP_head", (256,))) + (n_out,),
+                        device=device)
     cls = (MultiClassifier if multi else BinaryClassifier)(
         enc, class_weight=tr.get("class_weight"), seed=cfg.get("seed", 42), device=device,
         **_train_kwargs(tr))

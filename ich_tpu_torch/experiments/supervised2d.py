@@ -30,35 +30,38 @@ import argparse
 import csv
 import json
 import logging
+import math
 import os
+import re
 from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ich_tpu_torch.data.segich import load_segich_2d, split_summary_table, subsample_negatives
-from ich_tpu_torch.data.table import read_csv, unique_in_order
+from ich_tpu_torch.data.table import pandas_float, read_csv, unique_in_order
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops.metrics import fold_aggregate
 from ich_tpu_torch.ops.transforms import Compose, build_pipeline
 from ich_tpu_torch.postprocessing.analyse_exp import analyse_supervised_exp
 from ich_tpu_torch.train import checkpoint as ckpt
-from ich_tpu_torch.train.segmentation2d import UNet2D
-from ich_tpu_torch.utils import preemption
+from ich_tpu_torch.train.segmentation2d import UNet2D, resolve_device
+from ich_tpu_torch.utils import preemption, rng
 from ich_tpu_torch.utils.logging import setup_logger
 
 
 def build_augment_fn(spec: dict) -> Optional[Compose]:
     """The config's ``augmentation.train`` as one pipeline, called as
-    ``pipe(generator, images, masks)``; None for an empty spec."""
+    ``pipe(key, images, masks)``; None for an empty spec."""
     return build_pipeline(spec) if spec else None
 
 
-def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0) -> UNet:
-    """The config's U-Net (gated with ``gated``), its weights drawn from
-    ``seed`` (torch's global generator is left as it was)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
+def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0,
+                        device: str | torch.device = "cpu") -> UNet:
+    """The config's U-Net (gated with ``gated``) built on ``device``, its
+    weights flax's ``init`` from ``PRNGKey(seed)``, as the JAX trainer of
+    that seed draws them (drawn there: the same values on any device)."""
+    with torch.device(resolve_device(device)):
         return UNet(
             depth=net_cfg.get("depth", 5),
             ndim=3 if net_cfg.get("3D", False) else 2,
@@ -71,6 +74,7 @@ def build_unet_from_cfg(net_cfg: dict, norm: str = "batch", seed: int = 0) -> UN
             use_final_activation=net_cfg.get("use_final_activation", True),
             norm=net_cfg.get("norm", norm),
             gated=net_cfg.get("gated", False),
+            key=rng.prng_key(seed),
         )
 
 
@@ -114,20 +118,35 @@ def stratified_kfold(
         yield positions[test_folds != i], positions[test_folds == i]
 
 
+_INT = re.compile(r"[+-]?\d+")
+
+
+def _pandas_round_trip(column: Sequence[str]) -> list:
+    """A CSV column as pandas reads and writes it again: an integer column
+    as it is, any other as float64 (:func:`ich_tpu_torch.data.table.
+    pandas_float`, which may drop digits past the 17th), written as its
+    ``repr`` and NaN as an empty field."""
+    if all(_INT.fullmatch(t) for t in column):
+        return list(column)
+    values = (pandas_float(t) if t else float("nan") for t in column)
+    return ["" if math.isnan(v) else repr(v) for v in values]
+
+
 def _concat_volume_csvs(paths: Sequence[str], out_fn: str) -> None:
     """The folds' ``volume_prediction_scores.csv`` one after the other under
     a fresh leading index: pandas' ``concat(...).reset_index(drop=True)
-    .to_csv``."""
+    .to_csv`` of the files as ``read_csv`` reads them."""
     header, rows = None, []
     for path in paths:
         with open(path, newline="") as f:
             reader = csv.reader(f)
             header = next(reader)
             rows.extend(reader)
+    rows = list(zip(*(_pandas_round_trip(c) for c in zip(*rows)))) if rows else rows
     with open(out_fn, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow([""] + header)
-        w.writerows([i] + r for i, r in enumerate(rows))
+        w.writerows([i] + list(r) for i, r in enumerate(rows))
 
 
 def run_supervised_2d(
@@ -197,7 +216,7 @@ def run_supervised_2d(
 
         tr = cfg["train"]
         trainer = UNet2D(
-            build_unet_from_cfg(cfg["net"], seed=seed + k),
+            build_unet_from_cfg(cfg["net"], seed=seed + k, device=device),
             n_epoch=tr["n_epoch"],
             batch_size=tr["batch_size"],
             lr=tr["lr"],

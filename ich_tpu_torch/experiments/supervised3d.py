@@ -26,7 +26,9 @@ import torch
 from ich_tpu_torch.data.core import VolumeDataset3D
 from ich_tpu_torch.data.datasets import load_segich_3d
 from ich_tpu_torch.models.unet import UNet
+from ich_tpu_torch.train.segmentation2d import resolve_device
 from ich_tpu_torch.train.segmentation3d import UNet3D
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.logging import setup_logger
 
 
@@ -37,17 +39,17 @@ def split_test(ds: VolumeDataset3D) -> Tuple[VolumeDataset3D, VolumeDataset3D]:
             VolumeDataset3D(ds.volumes[-n_test:], ds.masks[-n_test:], ds.vol_ids[-n_test:]))
 
 
-def build_unet3d_from_cfg(net_cfg: dict, seed: int = 0, **unet_kw) -> UNet:
-    """The config's 3D U-Net with the JAX script's defaults, its weights
-    drawn from ``seed`` (torch's global generator is left as it was);
+def build_unet3d_from_cfg(net_cfg: dict, seed: int = 0, device: str | torch.device = "cpu",
+                          **unet_kw) -> UNet:
+    """The config's 3D U-Net with the JAX script's defaults, built on
+    ``device``, its weights flax's ``init`` from ``PRNGKey(seed)``;
     ``unet_kw`` (``dtype``, ``remat``) go to :class:`UNet` as they are."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
+    with torch.device(resolve_device(device)):
         return UNet(depth=net_cfg.get("depth", 4), ndim=3,
                     top_filter=net_cfg.get("top_filter", 16),
                     midchannels_factor=net_cfg.get("midchannels_factor", 1),
                     p_dropout=net_cfg.get("p_dropout", 0.0), norm=net_cfg.get("norm", "group"),
-                    **unet_kw)
+                    key=rng.prng_key(seed), **unet_kw)
 
 
 def build_trainer3d(cfg: dict, net: UNet, device: str | torch.device = "cuda",
@@ -75,7 +77,8 @@ def run_supervised_3d(cfg: dict, device: str | torch.device = "cuda") -> UNet3D:
     ds = load_segich_3d(cfg["path"]["DATA"], cfg["dataset"]["patient_numbers"], window=win,
                         out_spacing=tuple(cfg["data"].get("out_spacing", (-1, -1, 2.5))))
     train, test = split_test(ds)
-    trainer = build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=cfg.get("seed", 42)),
+    trainer = build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=cfg.get("seed", 42),
+                                                         device=device),
                               device)
     out_dir = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"])
     os.makedirs(out_dir, exist_ok=True)

@@ -22,9 +22,13 @@ JAX package's variables. BatchNorm is the port's, with flax's momentum 0.9.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from ich_tpu_torch.interop.from_jax import walk_ae
+from ich_tpu_torch.models.init import init_like_flax
 from ich_tpu_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
 from ich_tpu_torch.utils.config import NETWORKS
 
@@ -98,16 +102,20 @@ class AEDecoder(nn.Module):
 
 class AENet(nn.Module):
     """Encoder and decoder; ``forward(x, return_bottleneck=True)`` also
-    returns the bottleneck's features."""
+    returns the bottleneck's features. The weights are flax's ``init`` of
+    the JAX ``AENet`` from ``key``."""
+
+    _flax_walk = staticmethod(walk_ae)
 
     def __init__(self, in_channels: int = 1, latent_channels: int = 64,
                  bottleneck_channels: int = 64, n_conv: int = 3, bilinear: bool = False,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, key: Optional[torch.Tensor] = None):
         super().__init__()
         self.encoder = AEEncoder(in_channels, latent_channels, bottleneck_channels, n_conv,
                                  kernel_size)
         self.decoder = AEDecoder(latent_channels, bottleneck_channels, in_channels, n_conv,
                                  bilinear, kernel_size)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
         z = self.encoder(x)
@@ -119,7 +127,7 @@ class AENet(nn.Module):
 NETWORKS.add(
     "AE_net",
     lambda in_channels=1, latent_channels=64, bottelneck_channels=64, n_conv=3,
-    bilinear=False, kernel_size=5, **kw: AENet(
+    bilinear=False, kernel_size=5, key=None, **kw: AENet(
         in_channels=in_channels, latent_channels=latent_channels,
         bottleneck_channels=bottelneck_channels, n_conv=n_conv, bilinear=bilinear,
-        kernel_size=kernel_size))
+        kernel_size=kernel_size, key=key))

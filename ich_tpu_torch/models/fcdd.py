@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ich_tpu_torch.interop.from_jax import walk_fcdd
+from ich_tpu_torch.models.init import init_like_flax
 from ich_tpu_torch.models.layers import BatchNorm2d, Conv2d
 from ich_tpu_torch.utils.config import NETWORKS
 
@@ -96,9 +98,12 @@ def receptive_upsample(scores: torch.Tensor, out_hw: Tuple[int, int],
 class FCDD_CNN_VGG(nn.Module):
     """VGG-11-BN-style anomaly scorer (reference ``FCDD_net.py:9-47``):
     (B, 1, H, W) -> (B, 1, H/8, W/8) scores, or with ``ad=False`` the
-    512-channel feature map."""
+    512-channel feature map. The weights are flax's ``init`` of the JAX
+    ``FCDD_CNN_VGG`` from ``key``."""
 
-    def __init__(self, in_channels: int = 1):
+    _flax_walk = staticmethod(walk_fcdd)
+
+    def __init__(self, in_channels: int = 1, key: Optional[torch.Tensor] = None):
         super().__init__()
         layers, c = [], in_channels
         for kind, k, st, ch in _VGG_PLAN:
@@ -110,6 +115,7 @@ class FCDD_CNN_VGG(nn.Module):
                 layers.append(nn.MaxPool2d(k, st))
         self.features = nn.Sequential(*layers)
         self.conv_final = Conv2d(c, 1, 1)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, ad: bool = True) -> torch.Tensor:
         x = self.features(x)
@@ -124,4 +130,4 @@ class FCDD_CNN_VGG(nn.Module):
         return receptive_upsample(a, out_hw, std=std)
 
 
-NETWORKS.add("FCDD_CNN_VGG", lambda in_shape=None, bias=True, **kw: FCDD_CNN_VGG())
+NETWORKS.add("FCDD_CNN_VGG", lambda in_shape=None, bias=True, key=None, **kw: FCDD_CNN_VGG(key=key))

@@ -47,6 +47,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ich_tpu_torch.interop.from_jax import (
+    walk_gated_generator,
+    walk_patch_discriminator,
+    walk_sa_gated_generator,
+)
+from ich_tpu_torch.models.init import init_like_flax
 from ich_tpu_torch.models.layers import BatchNorm2d, Conv2d, stats_frozen
 from ich_tpu_torch.utils.config import NETWORKS
 
@@ -147,7 +153,7 @@ class SNConv2d(nn.Module):
         self.stride = stride
         self.conv = Conv2d(in_channels, features, kernel_size, stride=stride)
         if sn:
-            self.register_buffer("u", torch.randn(1, features))
+            self.register_buffer("u", torch.zeros(1, features))  # drawn by the family
             self.register_buffer("sigma", torch.ones(()))
         self.replay_u: Optional[torch.Tensor] = None
         self.norm = _norm(features) if batch_norm else None
@@ -167,6 +173,16 @@ class SNConv2d(nn.Module):
                 self.u.copy_(u0)
                 self.sigma.copy_(sigma)
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def normalize_kernel_(self) -> None:
+        """Divide the kernel by the spectral norm one power step from ``u``
+        estimates, storing nothing else: flax's ``SpectralNorm`` leaves its
+        layer's kernel so after ``init``."""
+        training = self.training
+        with torch.no_grad():
+            self.train(False)
+            self.conv.weight.copy_(self.sn_weight())
+        self.train(training)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_reflect(x, self.padding, self.padding_mode)
@@ -406,12 +422,15 @@ class GatedGenerator(nn.Module):
     attention branch (reference ``GatedGenerator:469-599``). ``forward(img
     (B, H, W, C), mask (B, H, W[, 1]))``, 1 = region to inpaint; returns
     ``(fine, coarse)`` (B, H, W, out_channels), or ``fine`` alone without
-    ``return_coarse``."""
+    ``return_coarse``. The weights are flax's ``init`` of the JAX
+    ``GatedGenerator`` from ``key``."""
+
+    _flax_walk = staticmethod(walk_gated_generator)
 
     def __init__(self, out_channels: int = 1, lat_channels: int = 32, activation: str = "relu",
                  norm: bool = True, context_attention: bool = True, return_coarse: bool = True,
                  context_attention_kwargs: Optional[dict] = None, remat: bool = False,
-                 in_channels: int = 2):
+                 in_channels: int = 2, key: Optional[torch.Tensor] = None):
         super().__init__()
         lat, act = lat_channels, activation
         self.return_coarse = return_coarse
@@ -423,6 +442,8 @@ class GatedGenerator(nn.Module):
             if context_attention else None)
         self.refine_dec = _GatedStack(4 * lat * (2 if context_attention else 1), specs[10:],
                                       remat)
+        if type(self) is GatedGenerator:  # a subclass draws once its modules are built
+            init_like_flax(self, key)
 
     def _middle(self, feat: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.refine_attention_enc is None:
@@ -445,13 +466,16 @@ class SAGatedGenerator(GatedGenerator):
     at the dilation-16 conv) and ``refine_dec``, instead of the contextual
     branch."""
 
+    _flax_walk = staticmethod(walk_sa_gated_generator)
+
     def __init__(self, out_channels: int = 1, lat_channels: int = 32, activation: str = "relu",
                  norm: bool = True, return_coarse: bool = True, remat: bool = False,
-                 in_channels: int = 2):
+                 in_channels: int = 2, key: Optional[torch.Tensor] = None):
         super().__init__(out_channels, lat_channels, activation, norm, context_attention=False,
                          return_coarse=return_coarse, remat=remat, in_channels=in_channels)
         self.remat = remat
         self.refine_attention = nn.Sequential(SelfAttention(4 * lat_channels), nn.ReLU())
+        init_like_flax(self, key)
 
     def _middle(self, feat: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return self.refine_attention[1](_call(self.refine_attention[0], self.remat, feat))
@@ -463,12 +487,16 @@ class PatchDiscriminator(nn.Module):
     layer (the last included), no activation on the last, and
     self-attention followed by a ReLU after layer n-2 (``layer_list`` keys
     as the reference's: the last conv at index n + 1). ``forward(img (B, H,
-    W, C), mask (B, H, W[, 1]))`` -> (B, h, w, out_channels[-1])."""
+    W, C), mask (B, H, W[, 1]))`` -> (B, h, w, out_channels[-1]). The
+    weights, ``u`` and ``sigma`` are flax's ``init`` of the JAX
+    ``PatchDiscriminator`` from ``key``."""
+
+    _flax_walk = staticmethod(walk_patch_discriminator)
 
     def __init__(self, out_channels: Sequence[int] = (64, 128, 256, 256, 256, 256),
                  kernel_size: int = 5, stride: int = 2, activation: str = "lrelu",
                  norm: bool = True, sn: bool = True, self_attention: bool = True,
-                 remat: bool = False, in_channels: int = 2):
+                 remat: bool = False, in_channels: int = 2, key: Optional[torch.Tensor] = None):
         super().__init__()
         self.remat = remat
         layers, c, n = [], in_channels, len(out_channels)
@@ -481,6 +509,7 @@ class PatchDiscriminator(nn.Module):
                 layers += [SelfAttention(f), nn.ReLU()]
             c = f
         self.layer_list = nn.ModuleList(layers)
+        init_like_flax(self, key)
 
     def forward(self, img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         img, mask = _nchw(img, mask)
@@ -497,7 +526,7 @@ def _pick(kw: dict, names: Tuple[str, ...]) -> dict:
 NETWORKS.add(
     "GatedGenerator",
     lambda in_channels=2, out_channels=1, lat_channels=32, device=None,
-    context_attention_kwargs=None, **kw: GatedGenerator(
+    context_attention_kwargs=None, key=None, **kw: GatedGenerator(key=key,
         out_channels=out_channels, lat_channels=lat_channels, in_channels=in_channels,
         context_attention_kwargs={
             k: v for k, v in (context_attention_kwargs or {}).items() if k != "device"
@@ -506,14 +535,15 @@ NETWORKS.add(
 )
 NETWORKS.add(
     "SAGatedGenerator",
-    lambda in_channels=2, out_channels=1, lat_channels=32, device=None, **kw: SAGatedGenerator(
+    lambda in_channels=2, out_channels=1, lat_channels=32, device=None, key=None,
+    **kw: SAGatedGenerator(key=key,
         out_channels=out_channels, lat_channels=lat_channels, in_channels=in_channels,
         **_pick(kw, ("activation", "norm", "return_coarse", "remat"))),
 )
 NETWORKS.add(
     "PatchDiscriminator",
-    lambda in_channels=2, device=None, **kw: PatchDiscriminator(
-        in_channels=in_channels,
+    lambda in_channels=2, device=None, key=None, **kw: PatchDiscriminator(
+        in_channels=in_channels, key=key,
         **_pick(kw, ("out_channels", "kernel_size", "stride", "activation", "norm", "sn",
                      "self_attention", "remat"))),
 )

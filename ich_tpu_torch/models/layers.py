@@ -14,11 +14,14 @@ normalisation in float32, one rounding to bf16. The JAX package's
 normalises in bf16: one rounding away (held at 2e-2 on probabilities by
 ``tests/test_torch_segment_volume_3d.py``).
 
-Training follows flax, not torch's defaults: a fresh conv or transposed
-conv draws its kernel from flax's ``lecun_normal`` (truncated normal, fan
-in) with a zero bias; BatchNorm's running variance takes the biased batch
-variance; dropout draws its mask from a generator that the trainer sets
-for each step, so that a resumed run replays the uninterrupted one.
+Training follows flax, not torch's defaults: a network family's
+constructor draws every conv, transposed-conv and dense kernel as flax's
+``lecun_normal`` does, from the family's key
+(:func:`ich_tpu_torch.models.init.init_like_flax`), and the layers here
+start at zero until it does, drawing nothing from torch's generator;
+BatchNorm's running variance takes the biased batch variance; dropout
+draws its mask from a generator that the trainer sets for each step, so
+that a resumed run replays the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -34,22 +37,12 @@ from torch.utils.checkpoint import checkpoint
 from ich_tpu_torch.parallel.mesh import all_reduce_sum
 
 
-# flax's variance_scaling(1.0, "fan_in", "truncated_normal"): a normal cut at
-# two standard deviations, rescaled so that the kept part has std sqrt(1/fan_in)
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
-    """Fill ``weight`` in place as flax's ``lecun_normal`` does."""
-    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+def _zero_reset(m: nn.Module) -> None:
+    """Zero weights until the family's ``init_like_flax`` draws them."""
     with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
-
-
-def _flax_reset(m: nn.Module, fan_in: int) -> None:
-    lecun_normal_(m.weight, fan_in)
-    if m.bias is not None:
-        nn.init.zeros_(m.bias)
+        m.weight.zero_()
+        if m.bias is not None:
+            m.bias.zero_()
 
 
 def _params_as(m: nn.Module, x: torch.Tensor):
@@ -60,7 +53,7 @@ def _params_as(m: nn.Module, x: torch.Tensor):
 
 class Conv2d(nn.Conv2d):
     def reset_parameters(self) -> None:
-        _flax_reset(self, self.weight[0].numel())  # kernel O I *k: fan in I * prod(k)
+        _zero_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, *_params_as(self, x))
@@ -68,7 +61,7 @@ class Conv2d(nn.Conv2d):
 
 class Conv3d(nn.Conv3d):
     def reset_parameters(self) -> None:
-        _flax_reset(self, self.weight[0].numel())  # kernel O I *k: fan in I * prod(k)
+        _zero_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, *_params_as(self, x))
@@ -76,8 +69,7 @@ class Conv3d(nn.Conv3d):
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     def reset_parameters(self) -> None:
-        # kernel I O *k; flax's (*k, I, O) kernel has fan in I * prod(k)
-        _flax_reset(self, self.weight.shape[0] * self.weight[0, 0].numel())
+        _zero_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose2d(x, *_params_as(self, x), self.stride, self.padding,
@@ -86,8 +78,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class ConvTranspose3d(nn.ConvTranspose3d):
     def reset_parameters(self) -> None:
-        # kernel I O *k; flax's (*k, I, O) kernel has fan in I * prod(k)
-        _flax_reset(self, self.weight.shape[0] * self.weight[0, 0].numel())
+        _zero_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose3d(x, *_params_as(self, x), self.stride, self.padding,
@@ -96,7 +87,7 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
 class Linear(nn.Linear):
     def reset_parameters(self) -> None:
-        _flax_reset(self, self.in_features)  # flax Dense: lecun_normal, zero bias
+        _zero_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, *_params_as(self, x))

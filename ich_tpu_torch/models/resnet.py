@@ -15,12 +15,14 @@ initialisers draw them and BatchNorm updates its statistics as flax does
 
 from __future__ import annotations
 
-from typing import Sequence, Type
+from typing import Optional, Sequence, Type
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ich_tpu_torch.interop.from_jax import walk_resnet
+from ich_tpu_torch.models.init import init_like_flax
 from ich_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
 from ich_tpu_torch.utils.config import NETWORKS
 
@@ -85,10 +87,13 @@ class ResNet(nn.Module):
     """The stem, ``len(stage_sizes)`` stages of ``block`` (64 * 2**s
     features, stride 2 at the first block of every stage but the first),
     the global mean and a linear layer to ``num_classes`` logits.
-    ``forward(x, return_features=True)`` also returns the (B, C) features."""
+    ``forward(x, return_features=True)`` also returns the (B, C) features.
+    The weights are flax's ``init`` of the JAX ``ResNet`` from ``key``."""
+
+    _flax_walk = staticmethod(walk_resnet)
 
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int], num_classes: int = 2,
-                 in_channels: int = 1):
+                 in_channels: int = 1, key: Optional[torch.Tensor] = None):
         super().__init__()
         self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
@@ -101,6 +106,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{s + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
         self.linear = Linear(c, num_classes)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -135,5 +141,5 @@ def resnet152(num_classes: int = 2, **kw) -> ResNet:
 FACTORIES = {"ResNet18": resnet18, "ResNet34": resnet34, "ResNet50": resnet50,
              "ResNet101": resnet101, "ResNet152": resnet152}
 for _name, _fn in FACTORIES.items():
-    NETWORKS.add(_name, lambda num_classes=2, input_channels=1, fn=_fn, **kw: fn(
-        num_classes=num_classes, in_channels=input_channels))
+    NETWORKS.add(_name, lambda num_classes=2, input_channels=1, fn=_fn, key=None, **kw: fn(
+        num_classes=num_classes, in_channels=input_channels, key=key))

@@ -25,7 +25,7 @@ instead of stored. The ``state_dict`` keys do not change.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -40,6 +40,8 @@ from ich_tpu_torch.models.layers import (
     up_conv,
     upsample_linear,
 )
+from ich_tpu_torch.interop.from_jax import walk_partial_unet, walk_unet, walk_unet_encoder
+from ich_tpu_torch.models.init import init_like_flax
 from ich_tpu_torch.utils.config import NETWORKS
 
 
@@ -115,7 +117,11 @@ class UNet(_UNetBody):
     softmax. ``forward(x, return_bottleneck=True)`` also returns the
     bottleneck's features. ``gated=True`` makes every block's convs gated
     convs (:class:`ich_tpu_torch.models.layers.ConvBlock`), the attention
-    U-Net's net; the keys stay the same."""
+    U-Net's net; the keys stay the same. The weights are those flax's
+    ``init`` draws from ``key`` for the JAX ``UNet``
+    (:func:`ich_tpu_torch.models.init.init_like_flax`)."""
+
+    _flax_walk = staticmethod(walk_unet)
 
     def __init__(self, depth: int = 5, ndim: int = 2, bilinear: bool = False,
                  in_channels: int = 1, out_channels: int = 1, top_filter: int = 64,
@@ -123,12 +129,13 @@ class UNet(_UNetBody):
                  p_dropout: Union[float, Sequence[float]] = 0.5,
                  use_final_activation: bool = True, norm: str = "batch",
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 gated: bool = False):
+                 gated: bool = False, key: Optional[torch.Tensor] = None):
         super().__init__(depth, ndim, bilinear, in_channels, top_filter, midchannels_factor,
                          p_dropout, norm, dtype, remat, n_decoder=depth - 1, gated=gated)
         self.out_channels = out_channels
         self.use_final_activation = use_final_activation
         self.final_conv = _CONV[ndim](self.out_channels_body, out_channels, 1)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
         x, bottleneck = self._body(x)
@@ -144,13 +151,16 @@ class UNetEncoder(_UNetBody):
     or classification pretraining. With ``return_bottleneck`` the pooled
     (B, C) features come second."""
 
+    _flax_walk = staticmethod(walk_unet_encoder)
+
     def __init__(self, depth: int = 5, ndim: int = 2, mlp_head: Sequence[int] = (256, 128),
                  in_channels: int = 1, top_filter: int = 64, midchannels_factor: int = 2,
                  p_dropout: Union[float, Sequence[float]] = 0.5, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, key: Optional[torch.Tensor] = None):
         super().__init__(depth, ndim, False, in_channels, top_filter, midchannels_factor,
                          p_dropout, norm, dtype, False, n_decoder=0)
         self.mlp_head = MLPHead(self.out_channels_body, mlp_head)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
         _, bottleneck = self._body(x)
@@ -164,14 +174,17 @@ class PartialUNet(_UNetBody):
     projection head (``head_channel`` lists each conv's output channels),
     for local contrastive pretraining (Chaitanya 2020)."""
 
+    _flax_walk = staticmethod(walk_partial_unet)
+
     def __init__(self, depth: int = 5, n_decoder: int = 3, ndim: int = 2,
                  bilinear: bool = False, head_channel: Sequence[int] = (64, 32),
                  in_channels: int = 1, top_filter: int = 64, midchannels_factor: int = 2,
                  p_dropout: Union[float, Sequence[float]] = 0.5, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, key: Optional[torch.Tensor] = None):
         super().__init__(depth, ndim, bilinear, in_channels, top_filter, midchannels_factor,
                          p_dropout, norm, dtype, False, n_decoder=n_decoder)
         self.final_conv = ConvHead(self.out_channels_body, head_channel, ndim)
+        init_like_flax(self, key)
 
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False):
         x, bottleneck = self._body(x)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ich_tpu_torch.ops.distance import distance_to_set
 from ich_tpu_torch.parallel.mesh import all_gather
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import LOSSES
 
 
@@ -162,20 +163,18 @@ def info_nce_loss(z1: torch.Tensor, z2: torch.Tensor, tau: float = 0.5,
     return _nt_xent(torch.cat([z1, z2], dim=0), z1.shape[0], tau)
 
 
-def sample_region_cells(gen: torch.Generator, batch: int, grid_cells: int,
+def sample_region_cells(key: torch.Tensor, batch: int, grid_cells: int,
                         n_region: int) -> torch.Tensor:
-    """``n_region`` distinct cells of ``grid_cells`` per batch element,
-    uniformly at random (the first entries of a random permutation per
-    row: the argsort of uniform draws). int64 (batch, n_region) on the
-    generator's device."""
-    u = torch.rand((batch, grid_cells), generator=gen, device=gen.device)
-    return torch.argsort(u, dim=1)[:, :n_region]
+    """``n_region`` distinct cells of ``grid_cells`` per batch element, the
+    JAX package's draw: the first entries of ``permutation(split(key,
+    batch)[i], grid_cells)``. int64 (batch, n_region) on the host."""
+    return rng.permutation(rng.split(key, batch), grid_cells)[:, :n_region]
 
 
 def local_info_nce_loss(
     f1: torch.Tensor,
     f2: torch.Tensor,
-    gen: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     tau: float = 0.5,
     K: int = 3,
     n_region: int = 13,
@@ -186,7 +185,7 @@ def local_info_nce_loss(
     maps of the two views. Each map is cut into its grid of KxK cells (the
     bottom and right strips that do not fill a cell dropped), ``n_region``
     cells are picked per batch element (the same in both views; drawn from
-    ``gen`` unless ``cells`` (B, n_region) is given), each flattened to
+    ``key`` unless ``cells`` (B, n_region) is given), each flattened to
     K*K*C in (y, x, C) order, and an NT-Xent runs over the 2 * n_region
     regions within each batch element."""
     b, h, w, c = f1.shape
@@ -196,7 +195,8 @@ def local_info_nce_loss(
             f"local_info_nce_loss: feature grid {gh}x{gw} has fewer cells "
             f"than n_region={n_region}; shrink n_region or K.")
     if cells is None:
-        cells = sample_region_cells(gen, b, gh * gw, n_region)
+        cells = sample_region_cells(key, b, gh * gw, n_region)
+    cells = cells.to(f1.device)
 
     def regions(f):
         f = f[:, : gh * K, : gw * K, :]

@@ -1,10 +1,13 @@
 """On-device, batched augmentation (counterpart of :mod:`ich_tpu.ops.transforms`).
 
-Every transform takes a whole batch (B, H, W[, C]) and an explicit
-``torch.Generator`` on the batch's device; the mask-aware ``Compose`` fuses
-consecutive geometric transforms into one affine warp, which the image
-(order 1) and the mask (order 0) share. Out-of-bounds samples are 0, as
-scipy's defaults.
+Every transform takes a whole batch (B, H, W[, C]) and an explicit random
+key (:mod:`ich_tpu_torch.utils.rng`), from which it draws exactly the
+parameters the JAX package's transform draws from the same key, with the
+same splits. The draws run on the host and reach the batch's device in
+one copy each; the mask-aware ``Compose`` splits its key once per
+transform and fuses consecutive geometric transforms into one affine warp
+(composed on the host), which the image (order 1) and the mask (order 0)
+share. Out-of-bounds samples are 0, as scipy's defaults.
 
 Every name of the JAX package's ``TRANSFORMS`` registry is here: the affine
 transforms (``Translate``, ``Rotate``, ``Scale``, ``HFlip``, ``VFlip`` and
@@ -15,10 +18,10 @@ and ``AdjustContrast`` (rank-agnostic, so the 3D patch augmentation of
 context-restoration corruption ``RandomPatchSwap``.
 
 A random transform draws its parameters in one method and applies given
-parameters in another, so that a test can inject the JAX package's draws:
-``affine_params`` for the affine ones, then ``apply_factors``
-(photometric), ``apply_params`` (blur), ``crop`` (z crop) and
-``draw_geometry`` / ``apply`` (patch swap).
+parameters in another, so that a test can inject parameters:
+``affine_params`` for the affine ones, ``_factors`` / ``apply_factors``
+(photometric), ``draw`` / ``apply_params`` (blur), ``draw`` / ``crop`` (z
+crop) and ``draw_geometry`` / ``apply`` (patch swap).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 
 from ich_tpu_torch.ops import ct
 from ich_tpu_torch.ops.warp import affine_warp, compose_affine, identity_affine
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRANSFORMS
 
 
@@ -40,11 +44,9 @@ def _ensure_batched(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return x, False
 
 
-def _uniform(gen: torch.Generator, batch, low: float, high: float) -> torch.Tensor:
-    """Draws of shape ``batch`` (an int or a tuple) uniform on [low, high),
-    as ``jax.random.uniform``."""
-    u = torch.rand(batch, generator=gen, device=gen.device, dtype=torch.float32)
-    return low + (high - low) * u
+def _on(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A host draw on ``like``'s device (one copy)."""
+    return x.to(like.device, non_blocking=True)
 
 
 def _matrix(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -52,10 +54,23 @@ def _matrix(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) 
     return torch.stack([torch.stack([a, b], dim=1), torch.stack([c, d], dim=1)], dim=1)
 
 
-class Transform:
-    """Base: ``__call__(gen, image, mask=None)`` on batched tensors."""
+def _warp_pair(image: torch.Tensor, mask: Optional[torch.Tensor], m: torch.Tensor,
+               o: torch.Tensor):
+    """The image (order 1) and its mask (order 0) warped by one map."""
+    img_b, sq = _ensure_batched(image)
+    image = affine_warp(img_b, m, o, order=1)
+    image = image[0] if sq else image
+    if mask is None:
+        return image
+    mask_b, msq = _ensure_batched(mask)
+    mask = affine_warp(mask_b, m, o, order=0)
+    return image, (mask[0] if msq else mask)
 
-    def __call__(self, gen, image, mask=None):
+
+class Transform:
+    """Base: ``__call__(key, image, mask=None)`` on batched tensors."""
+
+    def __call__(self, key, image, mask=None):
         raise NotImplementedError
 
     def __add__(self, other):
@@ -66,13 +81,18 @@ class Transform:
 
 class AffineTransform(Transform):
     """Geometric transform expressed as a per-sample inverse affine map
-    about the image centre; fusable in :class:`Compose`."""
+    about the image centre; fusable in :class:`Compose`.
+    ``affine_params(key, batch, hw)`` returns the (B, 2, 2) matrices and (B,
+    2) offsets on the host."""
 
-    def affine_params(self, gen: torch.Generator, batch: int, hw: Tuple[int, int]):
+    def affine_params(self, key, batch: int, hw: Tuple[int, int]):
         raise NotImplementedError
 
-    def __call__(self, gen, image, mask=None):
-        return Compose(self)(gen, image, mask)
+    def __call__(self, key, image, mask=None):
+        """As the JAX package's: the transform's own warp from ``key``."""
+        img_b = _ensure_batched(image)[0]
+        m, o = self.affine_params(key, img_b.shape[0], tuple(img_b.shape[1:3]))
+        return _warp_pair(image, mask, _on(m, img_b), _on(o, img_b))
 
 
 class Translate(AffineTransform):
@@ -82,11 +102,12 @@ class Translate(AffineTransform):
     def __init__(self, low: float = -0.1, high: float = 0.1):
         self.low, self.high = low, high
 
-    def affine_params(self, gen, batch, hw):
+    def affine_params(self, key, batch, hw):
         h, w = hw
-        sy = _uniform(gen, batch, h * self.low, h * self.high)
-        sx = _uniform(gen, batch, w * self.low, w * self.high)
-        m, _ = identity_affine(batch, gen.device)
+        ky, kx = rng.split(key)
+        sy = rng.uniform(ky, (batch,), h * self.low, h * self.high)
+        sx = rng.uniform(kx, (batch,), w * self.low, w * self.high)
+        m, _ = identity_affine(batch)
         # scipy shift(+s): out[i] = in[i - s]
         return m, torch.stack([-sy, -sx], dim=1)
 
@@ -101,12 +122,12 @@ class Rotate(AffineTransform):
     def __init__(self, low: float = -10.0, high: float = 10.0):
         self.low, self.high = low, high
 
-    def affine_params(self, gen, batch, hw):
-        ang = _uniform(gen, batch, self.low, self.high)
+    def affine_params(self, key, batch, hw):
+        ang = rng.uniform(key, (batch,), self.low, self.high)
         # output pixel p samples the input at R(-angle) (p - c) + c
         th = ang * (math.pi / 180.0)
         c, s = torch.cos(th), torch.sin(th)
-        return _matrix(c, s, -s, c), torch.zeros((batch, 2), device=gen.device)
+        return _matrix(c, s, -s, c), torch.zeros((batch, 2))
 
     def __str__(self):
         return f"Rotate(low={self.low}, high={self.high})"
@@ -119,10 +140,10 @@ class Scale(AffineTransform):
     def __init__(self, low: float = 0.9, high: float = 1.1):
         self.low, self.high = low, high
 
-    def affine_params(self, gen, batch, hw):
-        inv = 1.0 / _uniform(gen, batch, self.low, self.high)
+    def affine_params(self, key, batch, hw):
+        inv = 1.0 / rng.uniform(key, (batch,), self.low, self.high)
         z = torch.zeros_like(inv)
-        return _matrix(inv, z, z, inv), torch.zeros((batch, 2), device=gen.device)
+        return _matrix(inv, z, z, inv), torch.zeros((batch, 2))
 
     def __str__(self):
         return f"Scale(low={self.low}, high={self.high})"
@@ -136,12 +157,11 @@ class HFlip(AffineTransform):
     def __init__(self, p: float = 0.5):
         self.p = p
 
-    def affine_params(self, gen, batch, hw):
-        u = torch.rand(batch, generator=gen, device=gen.device, dtype=torch.float32)
-        sign = torch.where(u < self.p, -1.0, 1.0)
+    def affine_params(self, key, batch, hw):
+        sign = torch.where(rng.bernoulli(key, self.p, (batch,)), -1.0, 1.0)
         one, z = torch.ones_like(sign), torch.zeros_like(sign)
         diag = (one, sign) if self.axis == 1 else (sign, one)
-        return _matrix(diag[0], z, z, diag[1]), torch.zeros((batch, 2), device=gen.device)
+        return _matrix(diag[0], z, z, diag[1]), torch.zeros((batch, 2))
 
     def __str__(self):
         return f"{type(self).__name__}(p={self.p})"
@@ -164,12 +184,13 @@ class RandomCropResize(AffineTransform):
         self.crop_scales = tuple(crop_scales)
         self.crop_ratios = tuple(crop_ratios)
 
-    def affine_params(self, gen, batch, hw):
+    def affine_params(self, key, batch, hw):
         height, width = hw
         tries = 10
-        target_area = _uniform(gen, (batch, tries), *self.crop_scales) * (height * width)
-        log_r = _uniform(gen, (batch, tries), math.log(self.crop_ratios[0]),
-                         math.log(self.crop_ratios[1]))
+        k1, k2, k3, k4 = rng.split(key, 4)
+        target_area = rng.uniform(k1, (batch, tries), *self.crop_scales) * (height * width)
+        log_r = rng.uniform(k2, (batch, tries), math.log(self.crop_ratios[0]),
+                            math.log(self.crop_ratios[1]))
         ar = torch.exp(log_r)
         ws = torch.round(torch.sqrt(target_area * ar))
         hs = torch.round(torch.sqrt(target_area / ar))
@@ -185,8 +206,8 @@ class RandomCropResize(AffineTransform):
             fw, fh = width, height
         w = torch.where(any_ok, ws.gather(1, first)[:, 0], float(fw))
         h = torch.where(any_ok, hs.gather(1, first)[:, 0], float(fh))
-        iy = torch.floor(torch.rand(batch, generator=gen, device=gen.device) * (height - h + 1))
-        jx = torch.floor(torch.rand(batch, generator=gen, device=gen.device) * (width - w + 1))
+        iy = torch.floor(rng.uniform(k3, (batch,)) * (height - h + 1))
+        jx = torch.floor(rng.uniform(k4, (batch,)) * (width - w + 1))
         iy = torch.where(any_ok, iy, torch.div(height - h, 2, rounding_mode="floor"))
         jx = torch.where(any_ok, jx, torch.div(width - w, 2, rounding_mode="floor"))
         # y_in = (y_out + 0.5) h / H - 0.5 + iy, written about the centre
@@ -210,7 +231,7 @@ class Resize(Transform):
     def __init__(self, H: int = 256, W: int = 256):
         self.H, self.W = H, W
 
-    def __call__(self, gen, image, mask=None):
+    def __call__(self, key, image, mask=None):
         img_b, sq = _ensure_batched(image)
         out = ct.resize(img_b, (img_b.shape[0], self.H, self.W) + tuple(img_b.shape[3:]), order=1)
         out = out[0] if sq else out
@@ -238,10 +259,11 @@ class GaussianBlur(Transform):
         self.sigma = tuple(sigma)
         self.radius = max(1, int(math.ceil(4.0 * self.sigma[1])))
 
-    def draw(self, gen: torch.Generator, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(apply, sigma) per sample, drawn in this order."""
-        apply = torch.rand(batch, generator=gen, device=gen.device) < self.p
-        return apply, _uniform(gen, batch, *self.sigma)
+    def draw(self, key, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(apply, sigma) per sample on the host, from the two halves of
+        ``split(key)``."""
+        kp, ks = rng.split(key)
+        return rng.bernoulli(kp, self.p, (batch,)), rng.uniform(ks, (batch,), *self.sigma)
 
     def kernels(self, apply: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
         """(B, 2 radius + 1) taps: the Gaussian, or a delta where a sample
@@ -270,8 +292,9 @@ class GaussianBlur(Transform):
             out = out[..., 0]
         return out[0] if sq else out
 
-    def __call__(self, gen, image, mask=None):
-        out = self.apply_params(image, *self.draw(gen, _ensure_batched(image)[0].shape[0]))
+    def __call__(self, key, image, mask=None):
+        img_b = _ensure_batched(image)[0]
+        out = self.apply_params(image, *(_on(t, img_b) for t in self.draw(key, img_b.shape[0])))
         return (out, mask) if mask is not None else out
 
     def __str__(self):
@@ -287,10 +310,11 @@ class AdjustBrightness(Transform):
     def __init__(self, p: float = 0.5, low: float = -0.3, high: float = 0.2):
         self.p, self.low, self.high = p, low, high
 
-    def _factors(self, gen: torch.Generator, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(apply, factor) per sample, drawn in this order."""
-        apply = torch.rand(batch, generator=gen, device=gen.device) < self.p
-        return apply, _uniform(gen, batch, self.low, self.high)
+    def _factors(self, key, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(apply, factor) per sample on the host, from the two halves of
+        ``split(key)``."""
+        kp, kf = rng.split(key)
+        return rng.bernoulli(kp, self.p, (batch,)), rng.uniform(kf, (batch,), self.low, self.high)
 
     @staticmethod
     def _adjust(image: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -304,8 +328,10 @@ class AdjustBrightness(Transform):
         out = torch.where(apply.reshape(shape), self._adjust(img_b, f.reshape(shape)), img_b)
         return out[0] if sq else out
 
-    def __call__(self, gen, image, mask=None):
-        out = self.apply_factors(image, *self._factors(gen, _ensure_batched(image)[0].shape[0]))
+    def __call__(self, key, image, mask=None):
+        img_b = _ensure_batched(image)[0]
+        out = self.apply_factors(image, *(_on(t, img_b)
+                                          for t in self._factors(key, img_b.shape[0])))
         return (out, mask) if mask is not None else out
 
     def __str__(self):
@@ -332,9 +358,9 @@ class RandomZCrop(Transform):
     def __init__(self, Z: int = 64):
         self.Z = Z
 
-    def draw(self, gen: torch.Generator, batch: int, depth: int) -> torch.Tensor:
-        return torch.randint(0, max(1, depth - self.Z), (batch,), generator=gen,
-                             device=gen.device)
+    def draw(self, key, batch: int, depth: int) -> torch.Tensor:
+        """The (B,) starts on the host (``randint(key, (B,), 0, D - Z)``)."""
+        return rng.randint(key, (batch,), 0, depth - self.Z)
 
     def crop(self, image: torch.Tensor, z0: torch.Tensor) -> torch.Tensor:
         """(B, H, W, D) (or one (H, W, D) volume) cropped at the (B,) starts
@@ -347,9 +373,10 @@ class RandomZCrop(Transform):
         out = torch.gather(x, 3, idx.expand((b, h, w, self.Z) + tuple(x.shape[4:])))
         return out[0] if single else out
 
-    def __call__(self, gen, image, mask=None):
+    def __call__(self, key, image, mask=None):
         b = 1 if image.dim() == 3 else image.shape[0]
-        z0 = self.draw(gen, b, image.shape[-1] if image.dim() == 3 else image.shape[3])
+        z0 = _on(self.draw(key, b, image.shape[-1] if image.dim() == 3 else image.shape[3]),
+                 image)
         out = self.crop(image, z0)
         return (out, self.crop(mask, z0)) if mask is not None else out
 
@@ -386,16 +413,20 @@ class RandomPatchSwap(Transform):
         self.tries = tries
         self.S = max(self.w[1], self.h[1])
 
-    def draw_geometry(self, gen: torch.Generator, batch: int, hw: Tuple[int, int]):
-        """(h, w, p1, p2, r1, r2) of every swap: (B, n) int64 sizes, (B, n,
-        2) top-left corners (y, x) and (B, n) quarter turns (the patch from
-        p2 turned by r1 goes to p1, the one from p1 turned by r2 to p2)."""
+    def draw_geometry(self, key, batch: int, hw: Tuple[int, int]):
+        """(h, w, p1, p2, r1, r2) of every swap, on the host: (B, n) int64
+        sizes, (B, n, 2) top-left corners (y, x) and (B, n) quarter turns
+        (the patch from p2 turned by r1 goes to p1, the one from p1 turned
+        by r2 to p2). The JAX package's key tree, vectorised: sample i of
+        the batch takes ``split(key, B)[i]``, its swap j ``split(., n)[j]``,
+        which splits into the keys of w, h, the candidates (one per try)
+        and the turns."""
         H, W = hw
-        shape, dev = (batch, self.n), gen.device
-        w = torch.randint(self.w[0], self.w[1], shape, generator=gen, device=dev)
-        h = w if self.rotate else torch.randint(self.h[0], self.h[1], shape, generator=gen,
-                                                device=dev)
-        cand = torch.rand(shape + (self.tries, 4), generator=gen, device=dev)
+        shape = (batch, self.n)
+        kw, kh, kp, kr = rng.split(rng.split(rng.split(key, batch), self.n), 4).unbind(-2)
+        w = rng.randint(kw, (), self.w[0], self.w[1])
+        h = w if self.rotate else rng.randint(kh, (), self.h[0], self.h[1])
+        cand = rng.uniform(rng.split(kp, self.tries), (4,))  # (B, n, tries, 4)
         span = torch.stack([H - h, W - w], dim=-1)[:, :, None, :].to(torch.float32)
         p1 = torch.floor(cand[..., :2] * span).long()  # (B, n, tries, 2)
         p2 = torch.floor(cand[..., 2:] * span).long()
@@ -404,10 +435,10 @@ class RandomPatchSwap(Transform):
         first = torch.argmax(ok.to(torch.uint8), dim=-1)[..., None, None].expand(batch, self.n, 1, 2)
         p1, p2 = p1.gather(2, first)[:, :, 0], p2.gather(2, first)[:, :, 0]
         if self.rotate:
-            r1 = torch.randint(0, 4, shape, generator=gen, device=dev)
-            r2 = torch.randint(0, 4, shape, generator=gen, device=dev)
+            r1 = rng.randint(kr, (), 0, 4)
+            r2 = rng.randint(rng.fold_in(kr, 1), (), 0, 4)
         else:
-            r1 = r2 = torch.zeros(shape, dtype=torch.long, device=dev)
+            r1 = r2 = torch.zeros(shape, dtype=torch.long)
         return h, w, p1, p2, r1, r2
 
     def _turn_index(self, h: torch.Tensor, k: torch.Tensor):
@@ -426,7 +457,7 @@ class RandomPatchSwap(Transform):
     def apply(self, image: torch.Tensor, geometry, mask: Optional[torch.Tensor] = None):
         """The swaps of ``geometry`` (as :meth:`draw_geometry` returns it)
         on a (B, H, W[, C]) batch and its mask."""
-        h, w, p1, p2, r1, r2 = geometry
+        h, w, p1, p2, r1, r2 = (_on(g, image) for g in geometry)
         img_b, sq = _ensure_batched(image)
         x = img_b if img_b.dim() == 4 else img_b[..., None]
         ci = x.shape[-1]
@@ -460,9 +491,9 @@ class RandomPatchSwap(Transform):
         mask_out = out[..., ci:] if mask_b.dim() == 4 else out[..., ci]
         return img_out, (mask_out[0] if sq else mask_out)
 
-    def __call__(self, gen, image, mask=None):
+    def __call__(self, key, image, mask=None):
         img_b = _ensure_batched(image)[0]
-        geometry = self.draw_geometry(gen, img_b.shape[0], tuple(img_b.shape[1:3]))
+        geometry = self.draw_geometry(key, img_b.shape[0], tuple(img_b.shape[1:3]))
         return self.apply(image, geometry, mask)
 
     def __str__(self):
@@ -475,7 +506,7 @@ class ToTensor(Transform):
     ``ToTorchTensor``, ``transforms.py:634-670``, converts host arrays to
     torch; here the batch is a tensor already)."""
 
-    def __call__(self, gen, image, mask=None):
+    def __call__(self, key, image, mask=None):
         img_b, sq = _ensure_batched(image)
         if img_b.dim() == 3:
             img_b = img_b[..., None]
@@ -496,13 +527,13 @@ class Compose(Transform):
     ``transforms.py:21-70``: image-only or pairs, ``+`` concat, ``__str__``).
 
     Each run of consecutive :class:`AffineTransform` instances becomes one
-    warp; all draws come from the one generator, in the order of the
-    transforms."""
+    warp, composed on the host; transform i draws from ``split(key,
+    len(transforms))[i]``, as in the JAX package."""
 
     def __init__(self, *transforms: Transform):
         self.transforms = tuple(transforms)
 
-    def __call__(self, gen, image, mask=None):
+    def __call__(self, key, image, mask=None):
         segments, run = [], []
         for t in self.transforms:
             if isinstance(t, AffineTransform):
@@ -515,25 +546,20 @@ class Compose(Transform):
         if run:
             segments.append(tuple(run))
 
+        keys = iter(rng.split(key, max(1, len(self.transforms))))
         for seg in segments:
             if not isinstance(seg, tuple):
-                out = seg(gen, image, mask)
+                out = seg(next(keys), image, mask)
                 image, mask = out if mask is not None else (out, None)
                 continue
-            img_b, sq = _ensure_batched(image)
+            img_b = _ensure_batched(image)[0]
             b, hw = img_b.shape[0], tuple(img_b.shape[1:3])
-            m, o = identity_affine(b, img_b.device)
+            m, o = identity_affine(b)
             for t in seg:
-                mt, ot = t.affine_params(gen, b, hw)
+                mt, ot = t.affine_params(next(keys), b, hw)
                 m, o = compose_affine(m, o, mt, ot)
-            image = affine_warp(img_b, m, o, order=1)
-            if sq:
-                image = image[0]
-            if mask is not None:
-                mask_b, msq = _ensure_batched(mask)
-                mask = affine_warp(mask_b, m, o, order=0)
-                if msq:
-                    mask = mask[0]
+            out = _warp_pair(image, mask, _on(m, img_b), _on(o, img_b))
+            image, mask = out if mask is not None else (out, None)
         return (image, mask) if mask is not None else image
 
     def __str__(self):

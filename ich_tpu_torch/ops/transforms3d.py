@@ -13,7 +13,12 @@ values, so that the draws can be injected.
 - :class:`AffineAugment3D`: that rotation composed with random H and W
   flips into one warp;
 - photometric jitter is the rank-agnostic
-  :class:`ich_tpu_torch.ops.transforms.AdjustBrightness` / ``AdjustContrast``.
+  :class:`ich_tpu_torch.ops.transforms.AdjustBrightness` / ``AdjustContrast``,
+  whose factors ``Compose3D`` draws from its generator.
+
+The 2D transforms draw from jax.random's keys (:mod:`ich_tpu_torch.utils.
+rng`); these still draw from a torch generator, the same kinds of draws as
+the JAX package's but another stream.
 
 The in-plane warp folds depth into the batch and runs the exact gather of
 :func:`ich_tpu_torch.ops.warp.affine_warp`, the route the JAX package takes
@@ -28,9 +33,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ich_tpu_torch.ops.transforms import AdjustBrightness, _matrix, _uniform
+from ich_tpu_torch.ops.transforms import AdjustBrightness, _matrix
 from ich_tpu_torch.ops.warp import affine_warp, compose_affine
 from ich_tpu_torch.utils.config import TRANSFORMS
+
+
+def _uniform(gen: torch.Generator, batch, low: float, high: float) -> torch.Tensor:
+    """Draws of shape ``batch`` uniform on [low, high)."""
+    u = torch.rand(batch, generator=gen, device=gen.device, dtype=torch.float32)
+    return low + (high - low) * u
 
 
 def _bernoulli(gen: torch.Generator, batch: int, p: float) -> torch.Tensor:
@@ -144,14 +155,19 @@ class AffineAugment3D(_InPlaneAffine):
 
 class Compose3D:
     """Sequential 3D pipeline; the 2D photometric transforms compose too.
-    Each transform draws from the one generator in turn."""
+    Each transform draws from the one generator in turn: a photometric one
+    its (apply, factor) per sample, in this order."""
 
     def __init__(self, *transforms):
         self.transforms = tuple(transforms)
 
     def __call__(self, gen, image, mask=None):
         for t in self.transforms:
-            if mask is not None:
+            if isinstance(t, AdjustBrightness):
+                b = image.shape[0]
+                apply = torch.rand(b, generator=gen, device=gen.device) < t.p
+                image = t.apply_factors(image, apply, _uniform(gen, b, t.low, t.high))
+            elif mask is not None:
                 image, mask = t(gen, image, mask)
             else:
                 image = t(gen, image)

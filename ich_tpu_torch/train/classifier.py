@@ -14,8 +14,9 @@ the permutation (:func:`ich_tpu_torch.data.core.batch_indices`), as the JAX
 package plans it; the SSL trainers drop that batch instead. The permutation
 of epoch ``e`` is the (e+1)-th of ``np.random.default_rng(seed)``, replayed
 on a resume, so a resumed run is bit-equal to a straight one. Each step
-draws the augmentation (``augment_fn(generator, images)`` on (B, H, W, 1)
-batches) and then dropout from one generator seeded per step.
+splits its key as the JAX step does, ``ak, dk = split(key)``: the
+augmentation (``augment_fn(ak, images)`` on (B, H, W, 1) batches) draws the
+JAX package's parameters, and ``dk`` seeds dropout's torch generator.
 
 ``evaluate`` scores every slice on the device and computes the metrics of
 :mod:`ich_tpu_torch.ops.metrics` (scikit-learn's, without scikit-learn);
@@ -41,6 +42,7 @@ from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.train.segmentation2d import _set_dropout_generator, eval_mode
 from ich_tpu_torch.train.ssl import _nhwc, _SSLBase
 from ich_tpu_torch.train.state import TrainState
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 from ich_tpu_torch.utils.logging import print_progressbar, save_json
 
@@ -69,13 +71,17 @@ class _ClassifierBase(_SSLBase):
     def _metrics(self, labels: np.ndarray, scores: np.ndarray) -> Dict[str, float]:
         raise NotImplementedError
 
-    def _step(self, state: TrainState, batch, gen: torch.Generator) -> torch.Tensor:
+    def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
+        return self._step(state, batch, key)
+
+    def _step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
         images, labels = batch
         images = _nhwc(images)
+        ak, dk = rng.split(key)
         if self.augment_fn is not None:
             with torch.profiler.record_function("augment"):
-                images = self.augment_fn(gen, images)
-        _set_dropout_generator(state.model, gen)
+                images = self.augment_fn(ak, images)
+        _set_dropout_generator(state.model, self._dropout_generator(dk))
         with torch.profiler.record_function("net"):
             logits = state.model(images.movedim(-1, 1))
         with torch.profiler.record_function("loss"):

@@ -1,8 +1,8 @@
 """FCDD anomaly-localization trainer (counterpart of
 :mod:`ich_tpu.train.fcdd_trainer`; reference ``FCDD.py``).
 
-Each step draws from the step's generator
-(:func:`ich_tpu_torch.train.loop.step_seed`), in this order: a batch of
+Each step draws from a torch generator seeded from the step's key, in
+this order: a batch of
 ellipse images (:func:`ich_tpu_torch.ops.masks.draw_ellipses_batch`), then
 one uniform per slice. A normal slice (label 0) whose uniform is below
 ``anomaly_proba`` takes the ellipses' values wherever they are above 0 and
@@ -79,8 +79,8 @@ class FCDD(_SSLBase):
         for idx, images in zip(plan, self._batches(dataset.images, plan)):
             yield images, self._to_device(labels[idx])
 
-    def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
-        return self._step(state, *batch, self._generator(seed))
+    def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
+        return self._step(state, *batch, self._generator(key))
 
     def _step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
               gen: Optional[torch.Generator], ellipses: Optional[torch.Tensor] = None,

@@ -3,7 +3,7 @@
 Each step (reference ``SNPatchGAN.py``; ``ich_tpu/train/gan.py:158-209``):
 
 1. the free-form masks, drawn on the device from the step's generator
-   (:func:`ich_tpu_torch.train.loop.step_seed`) before anything else, or
+   (a torch generator seeded from the step's key) before anything else, or
    given;
 2. the D step: the generator in train mode without gradient, its BatchNorm
    update discarded (the G step starts again from the same statistics);
@@ -52,6 +52,7 @@ from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.train.segmentation2d import eval_mode, resolve_device
 from ich_tpu_torch.train.state import make_optimizer, make_schedule
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 from ich_tpu_torch.utils.logging import save_json
 
@@ -189,8 +190,8 @@ class SNPatchGAN:
 
     # -- the step -----------------------------------------------------------------
 
-    def _train_step(self, state: GANState, images: torch.Tensor, seed: int):
-        return self._step(state, images, self._generator(seed))
+    def _train_step(self, state: GANState, images: torch.Tensor, key: torch.Tensor):
+        return self._step(state, images, rng.torch_generator(key, self.device))
 
     def _step(self, state: GANState, images: torch.Tensor, gen: Optional[torch.Generator],
               masks: Optional[torch.Tensor] = None):

@@ -38,7 +38,7 @@ import torch
 
 from ich_tpu_torch.data.png import save_png_gray
 from ich_tpu_torch.ops import morphology as morph
-from ich_tpu_torch.train.loop import step_seed
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.train.segmentation2d import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -162,8 +162,7 @@ class InpaintAnomalyDetector:
     def _null_normals(self, call: int, shape: Tuple[int, ...]) -> torch.Tensor:
         """Standard normals for W1's null sample of pass ``call`` (0 the
         first detection, i + 1 the i-th cleanup)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(self.seed, call, 0))
+        gen = rng.torch_generator(rng.fold_in(rng.prng_key(self.seed), call), self.device)
         return torch.randn(shape, generator=gen, device=self.device)
 
     def _distance_map(self, image: torch.Tensor, grids: torch.Tensor, call: int) -> torch.Tensor:

@@ -5,10 +5,10 @@ Resume from the checkpoint, one log line per epoch, a checkpoint every
 ``checkpoint_freq`` epochs, and the SIGTERM stop after a checkpoint. The
 step losses stay on the device and are fetched once per epoch.
 
-Each step gets a seed derived from ``(seed, epoch, batch)``, the
-counterpart of the JAX loop's ``fold_in(fold_in(key, epoch), batch)``: the
-step's augmentation and dropout draw from a generator seeded with it, so a
-resumed run replays the uninterrupted one.
+Each step gets the JAX loop's key, ``fold_in(fold_in(prng_key(seed),
+epoch), batch)`` (:mod:`ich_tpu_torch.utils.rng`), from which its draws
+come, so a resumed run replays the uninterrupted one and the draws equal
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,20 +24,14 @@ import torch
 from ich_tpu_torch.parallel.mesh import all_reduce_mean
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.state import TrainState
-from ich_tpu_torch.utils import preemption
+from ich_tpu_torch.utils import preemption, rng
 
 logger = logging.getLogger(__name__)
 
 
-def step_seed(seed: int, epoch: int, batch: int) -> int:
-    """A 63-bit generator seed for one step, collision-free in practice for
-    any epoch length."""
-    return int(np.random.SeedSequence((seed, epoch, batch)).generate_state(1, np.uint64)[0] >> 1)
-
-
 def fit(
     state: TrainState,
-    train_step: Callable[[TrainState, Any, int], Any],  # (state, batch, seed) -> loss(es)
+    train_step: Callable[[TrainState, Any, torch.Tensor], Any],  # (state, batch, key) -> loss(es)
     batches_fn: Callable[[int], Iterable],  # epoch -> iterable of batches
     n_epoch: int,
     epoch_hook: Callable[[TrainState, int, Optional[np.ndarray], float], list],
@@ -76,12 +70,14 @@ def fit(
             logger.info("No Checkpoint found. Training from beginning.")
 
     logger.info("Start training the %s.", name)
+    root_key = rng.prng_key(seed)
     start_time = time.time()
 
     for epoch in range(n_epoch_finished, n_epoch):
         losses, epoch_start = [], time.time()
+        epoch_key = rng.fold_in(root_key, epoch)
         for b, batch in enumerate(batches_fn(epoch)):
-            loss = train_step(state, batch, step_seed(seed, epoch, b))
+            loss = train_step(state, batch, rng.fold_in(epoch_key, b))
             losses.append(torch.stack(loss) if isinstance(loss, (tuple, list)) else loss)
         mean_losses = None
         if losses:

@@ -5,8 +5,10 @@
 ``np.random.default_rng(seed)`` (so a resumed run sees the same batches),
 batches are gathered on the device from a ``device_cache``d dataset, and
 each step augments on the device, runs the net in train mode, takes the
-loss, backward and an Adam step, all from a generator seeded per step
-(:func:`ich_tpu_torch.train.loop.step_seed`). ``evaluate`` counts each
+loss, backward and an Adam step. The step's key (``fit``'s, as the JAX
+loop folds it) splits into the augmentation's key, whose draws equal the
+JAX package's, and dropout's, which seeds a torch generator (dropout's
+masks are the port's own stream). ``evaluate`` counts each
 slice's TN/FP/FN/TP on the device and writes the JAX package's CSVs (the
 columns, index and row order of pandas' ``to_csv``) and ``<vol>/<slice>.bmp``
 predictions. The net is in eval mode except while it trains.
@@ -22,11 +24,11 @@ With ``mesh=`` (an :class:`ich_tpu_torch.parallel.Mesh`) the trainer is
 data-parallel as the JAX package's jit-sharded one is: every rank holds
 the replicated net, replays the same host plan and gathers each global
 batch on its device, draws the augmentation for the global batch from the
-step's generator and keeps its slice (so world N computes world 1's step
+step's key and keeps its slice (so world N computes world 1's step
 with dropout off), normalises with the global batch's BatchNorm statistics
 and averages the gradients before Adam; ``batch_size`` is the global
-batch. Dropout draws from a generator seeded by the step's seed and the
-rank. ``evaluate`` runs on every rank and only rank 0 writes files; with
+batch. Dropout draws from a generator seeded by the dropout key with the
+rank folded in. ``evaluate`` runs on every rank and only rank 0 writes files; with
 more than one rank, ``segment_volumes`` of same-shaped volumes runs one
 volume per rank (:func:`ich_tpu_torch.parallel.volume_parallel_map`).
 """
@@ -58,6 +60,7 @@ from ich_tpu_torch.parallel.sharded_inference import volume_parallel_map
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.train.state import TrainState, make_optimizer, make_schedule
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import LOSSES, TRAINERS
 from ich_tpu_torch.utils.logging import print_progressbar, save_json
 from ich_tpu_torch.utils.pipeline import fetch_pipelined
@@ -239,39 +242,48 @@ class UNet2D:
             for idx in plan:
                 yield self._to_device(images[idx]), self._to_device(masks[idx])
 
-    def _generator(self, seed: int) -> torch.Generator:
-        """The step's generator on the device, seeded with ``seed``."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return gen
+    def _generator(self, key: torch.Tensor) -> torch.Generator:
+        """A torch generator on the device seeded from ``key``, for the
+        trainers whose draws are still torch's."""
+        return rng.torch_generator(key, self.device)
 
-    def _dropout_generator(self, gen: torch.Generator) -> torch.Generator:
-        """The step's dropout generator: ``gen`` itself, or under a mesh a
-        generator seeded by ``gen``'s seed and the rank, so that each
-        rank's slice draws its own masks."""
-        if self.mesh is None:
-            return gen
-        seq = np.random.SeedSequence((gen.initial_seed(), self.mesh.rank))
-        return self._generator(int(seq.generate_state(1, np.uint64)[0] >> 1))
+    def _dropout_generator(self, key: torch.Tensor) -> torch.Generator:
+        """Dropout's generator from its key; under a mesh with the rank
+        folded in, so that each rank's slice draws its own masks."""
+        if self.mesh is not None:
+            key = rng.fold_in(key, self.mesh.rank)
+        return self._generator(key)
 
-    def _train_step(self, state: TrainState, batch, seed: int) -> torch.Tensor:
-        return self._step(state, *batch, self._generator(seed))
+    def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
+        return self._step(state, *batch, key)
 
     def _step(self, state: TrainState, images: torch.Tensor, masks: torch.Tensor,
-              gen: torch.Generator) -> torch.Tensor:
-        """One step on a (B, *spatial[, 1]) batch: the channel axis added,
-        augmentation and dropout drawn from ``gen``, the net in its current
-        mode (channels moved first for it and back), the loss, backward and
-        Adam; returns the loss. Under a mesh the batch is the global one:
-        it is augmented whole, then this rank keeps its slice, and the loss
-        returned is the slice's (``fit`` averages it over the ranks)."""
-        images, masks = _with_channels(self._spatial_ndim, images, masks)
+              key: torch.Tensor) -> torch.Tensor:
+        """One step from ``key``: ``aug_key, drop_key = split(key)``, as the
+        JAX train step splits it (``augment_fn(aug_key, images, masks)``),
+        then :meth:`_update`."""
+        aug_key, drop_key = rng.split(key)
+        augment = None
         if self.augment_fn is not None:
+            augment = lambda im, mk: self.augment_fn(aug_key, im, mk)  # noqa: E731
+        return self._update(state, images, masks, augment, self._dropout_generator(drop_key))
+
+    def _update(self, state: TrainState, images: torch.Tensor, masks: torch.Tensor,
+                augment: Optional[Callable], dropout: torch.Generator) -> torch.Tensor:
+        """One step on a (B, *spatial[, 1]) batch: the channel axis added,
+        ``augment(images, masks)``, dropout drawn from ``dropout``, the net
+        in its current mode (channels moved first for it and back), the
+        loss, backward and Adam; returns the loss. Under a mesh the batch
+        is the global one: it is augmented whole, then this rank keeps its
+        slice, and the loss returned is the slice's (``fit`` averages it
+        over the ranks)."""
+        images, masks = _with_channels(self._spatial_ndim, images, masks)
+        if augment is not None:
             with torch.profiler.record_function("augment"):
-                images, masks = self.augment_fn(gen, images, masks)
+                images, masks = augment(images, masks)
         if self.mesh is not None:
             images, masks = shard_batch((images, masks), self.mesh)
-        _set_dropout_generator(state.model, self._dropout_generator(gen))
+        _set_dropout_generator(state.model, dropout)
         pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
             loss = self.loss(pred, masks)

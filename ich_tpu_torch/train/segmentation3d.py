@@ -179,14 +179,29 @@ class UNet3D(UNet2D):
         return sampler
 
     def _sample_step(self, state, draw: Callable[[torch.Generator], Tuple[torch.Tensor, ...]],
-                     seed: int) -> torch.Tensor:
-        """One training step: the step's generator first draws the
-        (images, masks) patches through ``draw``, then the augmentation and
-        dropout of :meth:`UNet2D._step`."""
-        gen = self._generator(seed)
+                     key: torch.Tensor) -> torch.Tensor:
+        """One training step: a torch generator seeded from the step's key
+        first draws the (images, masks) patches through ``draw``, then the
+        augmentation and dropout of :meth:`_step`."""
+        gen = self._generator(key)
         with torch.profiler.record_function("sample"):
             images, masks = draw(gen)
         return self._step(state, images, masks, gen)
+
+    def _step(self, state, images: torch.Tensor, masks: torch.Tensor,
+              gen: torch.Generator) -> torch.Tensor:
+        """One step whose augmentation and dropout draw from the torch
+        generator ``gen`` (under a mesh dropout from a generator seeded by
+        ``gen`` and the rank), then :meth:`UNet2D._update`."""
+        augment = None
+        if self.augment_fn is not None:
+            augment = lambda im, mk: self.augment_fn(gen, im, mk)  # noqa: E731
+        dropout = gen
+        if self.mesh is not None:
+            seq = np.random.SeedSequence((gen.initial_seed(), self.mesh.rank))
+            dropout = torch.Generator(device=self.device)
+            dropout.manual_seed(int(seq.generate_state(1, np.uint64)[0] >> 1))
+        return self._update(state, images, masks, augment, dropout)
 
     def train(
         self,
@@ -213,8 +228,8 @@ class UNet3D(UNet2D):
             return tuple(self._to_device(a) for a in sample_patches(
                 rng_box["rng"], dataset, self.batch_size, self.patch_size, self.pos_frac))
 
-        def run_step(state, _b, seed):
-            return self._sample_step(state, draw, seed)
+        def run_step(state, _b, key):
+            return self._sample_step(state, draw, key)
 
         def epoch_hook(state, epoch, mean_losses, epoch_time):
             mean_loss = float(mean_losses) if mean_losses is not None else 0.0

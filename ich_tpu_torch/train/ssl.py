@@ -10,10 +10,14 @@ contrastive learning.
   regions of a :class:`ich_tpu_torch.models.unet.PartialUNet`'s feature maps
   (Chaitanya 2020), over two views of each batch.
 
-Each step draws from one generator seeded per step
-(:func:`ich_tpu_torch.train.loop.step_seed`), in a fixed order: the
-corruption then dropout; or view 1, view 2, dropout of the first forward,
-dropout of the second, then the region cells. The two forwards of a
+Each step splits its key (``fit``'s, as the JAX loop folds it) as the JAX
+train step does: ``ck, dk = split(key)`` for the corruption and dropout;
+or ``k1, k2, kd1, kd2, kr = split(key, 5)`` for view 1, view 2, dropout of
+the first forward, of the second, and the region cells. The corruption,
+views and cells equal the JAX package's draws; each dropout key seeds a
+torch generator (dropout's masks are the port's own stream). The AE and
+FCDD trainers built on this base seed one torch generator from the key.
+The two forwards of a
 contrastive step run in train mode one after the other, so the second
 starts from the running statistics the first updated, as in the JAX
 package. Epochs drop the last partial batch (``n // batch_size`` steps);
@@ -72,6 +76,7 @@ from ich_tpu_torch.train.segmentation2d import (
     resolve_device,
 )
 from ich_tpu_torch.train.state import TrainState, make_optimizer, make_schedule
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 from ich_tpu_torch.utils.logging import print_progressbar, save_json
 
@@ -205,8 +210,9 @@ class _SSLBase:
     def _step(self, state: TrainState, images: torch.Tensor, gen: torch.Generator):
         raise NotImplementedError
 
-    def _train_step(self, state: TrainState, batch: torch.Tensor, seed: int) -> torch.Tensor:
-        return self._step(state, batch, self._generator(seed))
+    def _train_step(self, state: TrainState, batch: torch.Tensor, key: torch.Tensor
+                    ) -> torch.Tensor:
+        return self._step(state, batch, self._generator(key))
 
     def _update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)
@@ -321,7 +327,7 @@ class _SSLBase:
 class ContextRestoration(_SSLBase):
     """Patch-swap context restoration (Chen 2019; reference
     ``ContextRestoration.py``). ``net`` is a U-Net without a final
-    activation; ``corrupt`` is the step's corruption, ``corrupt(gen,
+    activation; ``corrupt`` is the step's corruption, ``corrupt(key,
     images)`` on (B, H, W, 1) batches."""
 
     name = "context-restoration U-Net"
@@ -331,12 +337,17 @@ class ContextRestoration(_SSLBase):
         super().__init__(net, **kwargs)
         self.corrupt = T.RandomPatchSwap(n=n_swap, w=swap_w, h=swap_h, rotate=swap_rotate)
 
-    def _step(self, state: TrainState, images: torch.Tensor, gen: torch.Generator):
+    def _train_step(self, state: TrainState, batch: torch.Tensor, key: torch.Tensor
+                    ) -> torch.Tensor:
+        return self._step(state, batch, key)
+
+    def _step(self, state: TrainState, images: torch.Tensor, key: torch.Tensor):
         images = _nhwc(images)
+        ck, dk = rng.split(key)
         with torch.profiler.record_function("corrupt"):
-            corrupted = self.corrupt(gen, images)
+            corrupted = self.corrupt(ck, images)
         corrupted, images = self._local(corrupted, images)
-        _set_dropout_generator(state.model, self._dropout_generator(gen))
+        _set_dropout_generator(state.model, self._dropout_generator(dk))
         with torch.profiler.record_function("net"):
             recon = state.model(corrupted.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
@@ -347,7 +358,7 @@ class ContextRestoration(_SSLBase):
 class Contrastive(_SSLBase):
     """Global (encoder NT-Xent) or local (partial-decoder region NT-Xent)
     contrastive pretraining (reference ``Contrastive.py``). ``aug_pipeline``
-    makes a view of a batch, ``aug(gen, images)``, and is called twice a
+    makes a view of a batch, ``aug(key, images)``, and is called twice a
     step; the default is the JAX package's SimCLR-style pipeline."""
 
     def __init__(self, net: nn.Module, is_global: bool = True, tau: float = 0.5,
@@ -366,15 +377,21 @@ class Contrastive(_SSLBase):
             T.AdjustBrightness(0.5, -0.2, 0.2), T.AdjustContrast(0.5, 0.8, 1.2),
         )
 
-    def _step(self, state: TrainState, images: torch.Tensor, gen: torch.Generator):
+    def _train_step(self, state: TrainState, batch: torch.Tensor, key: torch.Tensor
+                    ) -> torch.Tensor:
+        return self._step(state, batch, key)
+
+    def _step(self, state: TrainState, images: torch.Tensor, key: torch.Tensor):
         images = _nhwc(images)
+        k1, k2, kd1, kd2, kr = rng.split(key, 5)
         with torch.profiler.record_function("views"):
-            v1 = self.aug(gen, images)
-            v2 = self.aug(gen, images)
+            v1 = self.aug(k1, images)
+            v2 = self.aug(k2, images)
         v1, v2 = self._local(v1, v2)
-        _set_dropout_generator(state.model, self._dropout_generator(gen))
         with torch.profiler.record_function("net"):
+            _set_dropout_generator(state.model, self._dropout_generator(kd1))
             o1 = state.model(v1.movedim(-1, 1))
+            _set_dropout_generator(state.model, self._dropout_generator(kd2))
             o2 = state.model(v2.movedim(-1, 1))
         with torch.profiler.record_function("loss"):
             if self.is_global:
@@ -388,8 +405,8 @@ class Contrastive(_SSLBase):
                 if self.mesh is not None:  # drawn for the global batch, then sliced
                     b, h, w, _ = f1.shape
                     cells, = self._local(sample_region_cells(
-                        gen, b * self.mesh.size, (h // self.K) * (w // self.K), self.n_region))
-                loss = local_info_nce_loss(f1, f2, gen, tau=self.tau, K=self.K,
+                        kr, b * self.mesh.size, (h // self.K) * (w // self.K), self.n_region))
+                loss = local_info_nce_loss(f1, f2, kr, tau=self.tau, K=self.K,
                                            n_region=self.n_region, cells=cells)
         return self._update(state, loss)
 

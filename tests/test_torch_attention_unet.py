@@ -54,6 +54,7 @@ from ich_tpu_torch.interop.from_jax import unet_state_dict_from_jax
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.train.segmentation2d import UNet2D
+from ich_tpu_torch.utils.rng import prng_key
 
 torch.set_num_threads(2)
 
@@ -153,11 +154,11 @@ def test_two_channel_augmentation_matches_jax():
     for k, jt, pt in zip(keys, jts, pts):
         mt, ot = (np.array(a) for a in jt.affine_params(k, b, hw))
         jt.affine_params = lambda key, bb, hhww, mt=mt, ot=ot: (jnp.asarray(mt), jnp.asarray(ot))
-        pt.affine_params = (lambda gen, bb, hhww, mt=mt, ot=ot:
+        pt.affine_params = (lambda key, bb, hhww, mt=mt, ot=ot:
                             (torch.from_numpy(mt), torch.from_numpy(ot)))
     want_i, want_m = JT.Compose(*jts)(jax.random.PRNGKey(0), jnp.asarray(ds.images),
                                       jnp.asarray(ds.masks[..., None]))
-    got_i, got_m = T.Compose(*pts)(torch.Generator(), torch.from_numpy(ds.images),
+    got_i, got_m = T.Compose(*pts)(prng_key(0), torch.from_numpy(ds.images),
                                    torch.from_numpy(ds.masks[..., None]))
     assert got_i.shape == (8, 32, 32, 2)
     np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), rtol=0, atol=1e-5)

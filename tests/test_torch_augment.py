@@ -4,8 +4,8 @@ The warp is held with the same ``(m, o)``, drawn by JAX's Translate /
 Rotate / Scale / HFlip and composed by JAX: order 0 (masks) must be equal,
 order 1 (images) within 1e-5. ``Compose`` is held with the parameters
 injected into both packages' transforms; the port's samplers, which draw
-from a ``torch.Generator`` and cannot match ``jax.random``, are held by
-their distributions."""
+from a jax.random key (``tests/test_torch_keyed_draws.py`` holds them equal
+to the JAX package's), are held by their distributions too."""
 
 import math
 
@@ -19,6 +19,7 @@ from ich_tpu.ops import transforms as JT
 from ich_tpu.ops import warp as JW
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import warp as W
+from ich_tpu_torch.utils.rng import prng_key
 from ich_tpu_torch.utils.config import TRANSFORMS
 
 torch.set_num_threads(2)
@@ -102,20 +103,20 @@ def test_compose_with_injected_params_matches_jax(shape):
     jts, pts = _jax_transforms(), _port_transforms()
     for jt, pt, (mt, ot) in zip(jts, pts, params):
         jt.affine_params = lambda key, bb, hhww, mt=mt, ot=ot: (jnp.asarray(mt), jnp.asarray(ot))
-        pt.affine_params = (lambda gen, bb, hhww, mt=mt, ot=ot:
+        pt.affine_params = (lambda key, bb, hhww, mt=mt, ot=ot:
                             (torch.from_numpy(mt), torch.from_numpy(ot)))
-    rng = np.random.default_rng(0)
-    img = rng.uniform(size=shape).astype(np.float32)
-    mask = (rng.uniform(size=shape) > 0.7).astype(np.float32)
+    draw = np.random.default_rng(0)
+    img = draw.uniform(size=shape).astype(np.float32)
+    mask = (draw.uniform(size=shape) > 0.7).astype(np.float32)
     want_img, want_mask = JT.Compose(*jts)(jax.random.PRNGKey(0), jnp.asarray(img),
                                            jnp.asarray(mask))
-    got_img, got_mask = T.Compose(*pts)(torch.Generator(), torch.from_numpy(img),
+    got_img, got_mask = T.Compose(*pts)(prng_key(0), torch.from_numpy(img),
                                         torch.from_numpy(mask))
     np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
     assert set(np.unique(got_mask.numpy())) <= {0.0, 1.0}
     # image only, and one unbatched (H, W) image
-    only = T.Compose(*pts)(torch.Generator(), torch.from_numpy(img))
+    only = T.Compose(*pts)(prng_key(0), torch.from_numpy(img))
     np.testing.assert_array_equal(only.numpy(), got_img.numpy())
 
 
@@ -127,9 +128,9 @@ def _sigma3(var: float) -> float:
 
 
 def test_translate_distribution():
-    gen = torch.Generator().manual_seed(0)
+    key = prng_key(0)
     h, w = 24, 40
-    m, o = T.Translate(-0.1, 0.1).affine_params(gen, N, (h, w))
+    m, o = T.Translate(-0.1, 0.1).affine_params(key, N, (h, w))
     assert torch.equal(m, W.identity_affine(N)[0])
     for axis, n in ((0, h), (1, w)):
         s = -o[:, axis].double().numpy()
@@ -140,8 +141,8 @@ def test_translate_distribution():
 
 
 def test_rotate_distribution():
-    gen = torch.Generator().manual_seed(1)
-    m, o = T.Rotate(-10, 10).affine_params(gen, N, (32, 32))
+    key = prng_key(1)
+    m, o = T.Rotate(-10, 10).affine_params(key, N, (32, 32))
     ang = np.degrees(np.arctan2(m[:, 0, 1].double().numpy(), m[:, 0, 0].double().numpy()))
     np.testing.assert_allclose(m[:, 1, 1], m[:, 0, 0])
     np.testing.assert_allclose(m[:, 1, 0], -m[:, 0, 1])
@@ -151,8 +152,8 @@ def test_rotate_distribution():
 
 
 def test_scale_distribution():
-    gen = torch.Generator().manual_seed(2)
-    m, _ = T.Scale(0.9, 1.1).affine_params(gen, N, (32, 32))
+    key = prng_key(2)
+    m, _ = T.Scale(0.9, 1.1).affine_params(key, N, (32, 32))
     s = 1.0 / m[:, 0, 0].double().numpy()
     np.testing.assert_array_equal(m[:, 0, 0], m[:, 1, 1])
     assert not m[:, 0, 1].any() and not m[:, 1, 0].any()
@@ -163,8 +164,8 @@ def test_scale_distribution():
 @pytest.mark.parametrize("cls,axis", [(T.HFlip, 1), (T.VFlip, 0)])
 @pytest.mark.parametrize("p", [0.5, 0.2])
 def test_flip_rate(cls, axis, p):
-    gen = torch.Generator().manual_seed(3)
-    m, _ = cls(p).affine_params(gen, N, (32, 32))
+    key = prng_key(3)
+    m, _ = cls(p).affine_params(key, N, (32, 32))
     sign = m[:, axis, axis].numpy()
     assert set(np.unique(sign)) <= {-1.0, 1.0}
     assert np.all(m[:, 1 - axis, 1 - axis].numpy() == 1.0)
@@ -174,12 +175,12 @@ def test_flip_rate(cls, axis, p):
 def test_same_seed_same_draws_and_flip_moves_pixels():
     x = torch.arange(2 * 4 * 6, dtype=torch.float32).reshape(2, 4, 6)
     pipe = T.build_pipeline(CONFIG_SPEC)
-    a = pipe(torch.Generator().manual_seed(5), x, (x > 20).float())
-    b = pipe(torch.Generator().manual_seed(5), x, (x > 20).float())
-    c = pipe(torch.Generator().manual_seed(6), x, (x > 20).float())
+    a = pipe(prng_key(5), x, (x > 20).float())
+    b = pipe(prng_key(5), x, (x > 20).float())
+    c = pipe(prng_key(6), x, (x > 20).float())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[0], c[0])
-    flipped = T.HFlip(p=1.0)(torch.Generator(), x)
+    flipped = T.HFlip(p=1.0)(prng_key(0), x)
     np.testing.assert_array_equal(flipped.numpy(), x.numpy()[:, :, ::-1])
 
 

@@ -35,6 +35,7 @@ from ich_tpu_torch.models import resnet
 from ich_tpu_torch.models.unet import UNetEncoder
 from ich_tpu_torch.ops import losses as L
 from ich_tpu_torch.ops import metrics as M
+from ich_tpu_torch.utils import rng as prng
 from ich_tpu_torch.utils.config import LOSSES, NETWORKS, TRAINERS
 
 torch.set_num_threads(2)
@@ -272,8 +273,8 @@ def test_classifier_resume_and_validation(tmp_path):
     data = synthetic_rsna_slices(n_slices=12, size=32, seed=5)
     binary = LabeledSliceDataset(data.images, data.labels[:, 0].astype(np.int32))
 
-    def flip(gen, x):
-        keep = torch.rand((x.shape[0], 1, 1, 1), generator=gen, device=x.device) < 0.5
+    def flip(key, x):
+        keep = prng.bernoulli(key, 0.5, (x.shape[0], 1, 1, 1)).to(x.device)
         return torch.where(keep, x, x.flip(2))
 
     def make(n_epoch, **kw):

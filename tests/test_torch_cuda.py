@@ -21,6 +21,7 @@ from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
+from ich_tpu_torch.utils import rng as prng
 
 pytestmark = pytest.mark.cuda
 
@@ -118,20 +119,20 @@ def test_augment_warp_card_matches_cpu(card):
     """The config's Compose with one set of (m, o) drawn on the CPU and
     injected: masks equal, images within 1e-5."""
     spec = {"Translate": {}, "Rotate": {}, "Scale": {}, "HFlip": {}}
-    gen = torch.Generator().manual_seed(0)
-    params = [t.affine_params(gen, 16, (64, 64)) for t in T.build_pipeline(spec).transforms]
+    params = [t.affine_params(k, 16, (64, 64))
+              for k, t in zip(prng.split(prng.prng_key(0), 4), T.build_pipeline(spec).transforms)]
 
     def injected():
         pipe = T.build_pipeline(spec)
         for t, (m, o) in zip(pipe.transforms, params):
-            t.affine_params = lambda g, b, hw, m=m, o=o: (m.to(g.device), o.to(g.device))
+            t.affine_params = lambda key, b, hw, m=m, o=o: (m, o)
         return pipe
 
     rng = np.random.default_rng(0)
     img = torch.from_numpy(rng.uniform(size=(16, 64, 64)).astype(np.float32))
     mask = torch.from_numpy((rng.uniform(size=(16, 64, 64)) > 0.7).astype(np.float32))
-    want = injected()(torch.Generator(), img, mask)
-    got = injected()(torch.Generator(device="cuda"), img.cuda(), mask.cuda())
+    want = injected()(prng.prng_key(0), img, mask)
+    got = injected()(prng.prng_key(0), img.cuda(), mask.cuda())
     assert torch.equal(got[1].cpu(), want[1])
     assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-5
 
@@ -260,33 +261,32 @@ def test_patch_swap_card_equals_cpu(card, rotate):
     """The geometry drawn on the CPU and injected: the swapped images and
     masks are equal on the card and the CPU."""
     swap = T.RandomPatchSwap(n=10, w=(10, 30), h=(10, 30), rotate=rotate)
-    geom = swap.draw_geometry(torch.Generator().manual_seed(0), 8, (256, 256))
+    geom = swap.draw_geometry(prng.prng_key(0), 8, (256, 256))
     rng = np.random.default_rng(1)
     img = torch.from_numpy(rng.uniform(size=(8, 256, 256, 1)).astype(np.float32))
     mask = torch.from_numpy((rng.uniform(size=(8, 256, 256)) > 0.5).astype(np.float32))
     want = swap.apply(img, geom, mask)
     got = swap.apply(img.cuda(), tuple(g.cuda() for g in geom), mask.cuda())
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    drawn = swap.draw_geometry(gen, 8, (256, 256))
-    assert all(d.is_cuda for d in drawn) and (drawn[0] >= 10).all()
+    got = swap(prng.prng_key(0), img.cuda(), mask.cuda())  # the draws on the host
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def test_blur_and_crop_resize_card_match_cpu(card):
     """The blur with injected flags and sigmas, and the crop-resize warp
     with injected (m, o): within 1e-5 on the card and the CPU."""
-    gen = torch.Generator().manual_seed(0)
+    kb, kc = prng.split(prng.prng_key(0))
     blur = T.GaussianBlur(0.5, (0.1, 2.0))
-    apply, sig = blur.draw(gen, 16)
+    apply, sig = blur.draw(kb, 16)
     x = torch.from_numpy(np.random.default_rng(2).uniform(size=(16, 256, 256, 1)).astype(np.float32))
     want = blur.apply_params(x, apply, sig)
     got = blur.apply_params(x.cuda(), apply.cuda(), sig.cuda())
     assert float((got.cpu() - want).abs().max()) <= 1e-5
     crop = T.RandomCropResize((0.4, 0.8))
-    m, o = crop.affine_params(gen, 16, (256, 256))
-    crop.affine_params = lambda g, b, hw: (m.to(g.device), o.to(g.device))
-    want = crop(torch.Generator(), x)
-    got = crop(torch.Generator(device="cuda"), x.cuda())
+    m, o = crop.affine_params(kc, 16, (256, 256))
+    crop.affine_params = lambda key, b, hw: (m, o)
+    want = crop(kc, x)
+    got = crop(kc, x.cuda())
     assert float((got.cpu() - want).abs().max()) <= 1e-5
 
 
@@ -328,7 +328,7 @@ def _inject(kind, trainers, monkeypatch):
     """The same randomness on every trainer: the CPU's patch-swap geometry;
     or two fixed views and fixed region cells."""
     if kind == "cr":
-        geom = trainers[0].corrupt.draw_geometry(torch.Generator().manual_seed(1), 8, (32, 32))
+        geom = trainers[0].corrupt.draw_geometry(prng.prng_key(1), 8, (32, 32))
         for t in trainers:
             swap = t.corrupt
             t.corrupt = lambda g, x, swap=swap: swap.apply(x, tuple(a.to(x.device) for a in geom))
@@ -337,7 +337,7 @@ def _inject(kind, trainers, monkeypatch):
 
     cells = torch.from_numpy(np.stack([np.random.default_rng(i).permutation(64)[:4]
                                        for i in range(8)]))
-    monkeypatch.setattr(losses, "sample_region_cells", lambda g, b, n, r: cells.to(g.device))
+    monkeypatch.setattr(losses, "sample_region_cells", lambda key, b, n, r: cells)
     for t in trainers:
         t.aug = _TwoViews()
 
@@ -358,7 +358,8 @@ def test_ssl_steps_card_match_cpu(card, kind, monkeypatch):
     for t in first:
         state = t._train_state(2)
         t.net.train()
-        loss = t._train_step(state, torch.from_numpy(ds.images[:8]).to(t.device), 0)
+        loss = t._train_step(state, torch.from_numpy(ds.images[:8]).to(t.device),
+                             prng.prng_key(0))
         step1.append((float(loss), torch.cat([p.grad.flatten().cpu() for p in t.net.parameters()
                                               if p.grad is not None])))
     (lc, gc), (lg, gg) = step1
@@ -407,7 +408,7 @@ def _classifier_step1(kind, ds, dtype=torch.float32):
         state = t._train_state(2)
         t.net.train()
         images, labels = next(t._labelled_batches(ds, [np.arange(8)]))
-        loss = t._step(state, (images.to(dtype), labels), t._generator(0))
+        loss = t._step(state, (images.to(dtype), labels), prng.prng_key(0))
         out.append((float(loss), torch.cat([p.grad.flatten().cpu() for p in t.net.parameters()])))
     return out
 
@@ -649,7 +650,7 @@ def test_gated_unet_step_card_matches_cpu(card):
         t = UNet2D(net, batch_size=4, lr=lr, device=dev)
         state = t._train_state(1)
         net.train()
-        loss = float(t._step(state, x.to(t.device), y.to(t.device), t._generator(0)))
+        loss = float(t._step(state, x.to(t.device), y.to(t.device), prng.prng_key(0)))
         runs.append((loss, torch.cat([p.detach().flatten().cpu() for p in net.parameters()])))
     (lc, pc), (lg, pg) = runs
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
@@ -698,10 +699,10 @@ def test_nccl_world1_step_matches_plain_step(card, tmp_path):
             t = UNet2D(net, batch_size=4, lr=lr, device="cuda", mesh=m)
             state = t._train_state(1)
             net.train()
-            losses = [float(t._step(state, x, y, t._generator(0)))]
+            losses = [float(t._step(state, x, y, prng.prng_key(0)))]
             step1 = torch.cat([p.detach().flatten().cpu() for p in net.parameters()])
             stats = torch.cat([b.flatten().cpu() for b in net.buffers() if b.is_floating_point()])
-            losses += [float(t._step(state, x, y, t._generator(s))) for s in (1, 2)]
+            losses += [float(t._step(state, x, y, prng.prng_key(s))) for s in (1, 2)]
             runs.append((losses, step1, stats))
         (lp, pp, bp), (lm, pm, bm) = runs
         np.testing.assert_allclose(lm, lp, rtol=1e-5)

@@ -83,7 +83,7 @@ def test_gated_conv_layers_match_jax(dilation, padding, up, train):
     node["var"] = rng.uniform(0.5, 1.5, size=5).astype(np.float32)
     pn = (P.UpsampleGatedConv2d if up else P.GatedConv2d)(6, 5, dilation=dilation,
                                                           padding=padding, activation="lrelu")
-    e = FJ._GanEmitter(v)
+    e = FJ._Emitter(v)
     if up:
         e.conv("gconv/conv", "gated_conv.conv")
         e.norm("gconv/norm", "gated_conv.norm")
@@ -112,7 +112,7 @@ def test_sn_conv_matches_flax_spectral_norm(train):
     x = rng.normal(size=(2, 12, 12, 3)).astype(np.float32)
     jn = J.SNConv2d(features=7, kernel_size=5, stride=2, padding=2)
     v = _np_tree(jn.init(jax.random.PRNGKey(3), jnp.asarray(x)))
-    e = FJ._GanEmitter(v)
+    e = FJ._Emitter(v)
     e.conv("conv", "conv")
     e.norm("norm", "norm")
     sd = dict(e.sd)
@@ -141,6 +141,9 @@ def test_sn_conv_is_not_torch_spectral_norm():
     random u give the same output only because neither stores u."""
     torch.manual_seed(0)
     p = P.SNConv2d(3, 4, 3, stride=1, padding=1).eval()
+    with torch.no_grad():  # a layer alone starts at zero: its family draws the weights
+        p.conv.weight.normal_()
+        p.u.normal_()
     x = torch.randn(1, 3, 6, 6)
     w = p.sn_weight()
     mat = p.conv.weight.permute(2, 3, 1, 0).reshape(-1, 4)

@@ -360,6 +360,7 @@ def test_tiny_study_runs_every_arm_and_starts_from_the_pretrained_weights(tmp_pa
     assert list(provenance) == list(more)
     assert all(p == {"torch": torch.__version__, "cuda": torch.version.cuda, "device": "cpu",
                      "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-                     "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+                     "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+                     "draws": S.DRAWS}
                for p in provenance.values())
 

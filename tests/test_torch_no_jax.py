@@ -57,7 +57,8 @@ PROBE = textwrap.dedent("""
                  "ich_tpu_torch.postprocessing.plots",
                  "ich_tpu_torch.postprocessing.analyse_exp",
                  "ich_tpu_torch.experiments.label_efficiency_study",
-                 "ich_tpu_torch.utils.profiling"):
+                 "ich_tpu_torch.utils.profiling", "ich_tpu_torch.utils.rng",
+                 "ich_tpu_torch.models.init"):
         assert name in names, name
     # sklearn is imported only inside evaluate_representation
     assert not {"sklearn", "pandas", "PIL"} & set(sys.modules), sys.modules.keys()

@@ -1,10 +1,11 @@
 """The port's SSL losses and transforms against the JAX package's.
 
-Random draws cannot match ``jax.random``, so each random transform is held
-with the JAX package's own draws injected into the port's apply step
-(``RandomPatchSwap`` exactly, the blur within 1e-5, ``RandomCropResize``'s
-warp image within 1e-5 and mask equal, the z crop equal), and the port's
-samplers are held by their distributions. The losses take the same
+Each random transform is held with the JAX package's own draws injected
+into the port's apply step (``RandomPatchSwap`` exactly, the blur within
+1e-5, ``RandomCropResize``'s warp image within 1e-5 and mask equal, the z
+crop equal), and the port's samplers, which draw from a jax.random key
+(``tests/test_torch_keyed_draws.py`` holds them equal to the JAX
+package's), by their distributions too. The losses take the same
 embeddings (and, for the local loss, the same region cells) and agree
 within rtol 1e-5."""
 
@@ -23,6 +24,7 @@ from ich_tpu.utils.config import TRANSFORMS as JAX_TRANSFORMS
 from ich_tpu_torch.ops import losses as L
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as _transforms3d  # noqa: F401  (registers names)
+from ich_tpu_torch.utils.rng import prng_key
 from ich_tpu_torch.utils.config import LOSSES, TRANSFORMS
 
 torch.set_num_threads(2)
@@ -68,8 +70,7 @@ def test_local_info_nce_matches_jax_with_injected_cells(shape, K, n_region, monk
 
 
 def test_sample_region_cells_distinct_and_uniform():
-    gen = torch.Generator().manual_seed(0)
-    cells = L.sample_region_cells(gen, 4000, 20, 5).numpy()
+    cells = L.sample_region_cells(prng_key(0), 4000, 20, 5).numpy()
     assert cells.shape == (4000, 5) and cells.min() >= 0 and cells.max() < 20
     assert all(len(set(row)) == 5 for row in cells)
     counts = np.bincount(cells.ravel(), minlength=20) / cells.size
@@ -148,7 +149,7 @@ def test_patch_swap_overlapping_fallback_equals_jax():
 
 def test_patch_swap_draws_by_distribution():
     swap = T.RandomPatchSwap(n=10, w=(10, 30), h=(10, 30), rotate=True)
-    h, w, p1, p2, r1, r2 = swap.draw_geometry(torch.Generator().manual_seed(0), 400, (256, 256))
+    h, w, p1, p2, r1, r2 = swap.draw_geometry(prng_key(0), 400, (256, 256))
     assert torch.equal(h, w) and h.shape == (400, 10)
     assert h.min() >= 10 and h.max() <= 29
     assert abs(float(h.float().mean()) - 19.5) <= _sigma3((20**2 - 1) / 12, h.numel())
@@ -161,12 +162,12 @@ def test_patch_swap_draws_by_distribution():
         freq = np.bincount(r.numpy().ravel(), minlength=4) / r.numel()
         assert np.all(np.abs(freq - 0.25) <= _sigma3(0.1875, r.numel()))
     plain = T.RandomPatchSwap(n=3, w=(4, 8), h=(10, 12))
-    h, w, _, _, r1, _ = plain.draw_geometry(torch.Generator().manual_seed(1), 50, (32, 32))
+    h, w, _, _, r1, _ = plain.draw_geometry(prng_key(1), 50, (32, 32))
     assert not torch.equal(h, w) and h.min() >= 10 and w.max() <= 7 and not r1.any()
-    # __call__ draws, then applies: same generator seed, same result
+    # __call__ draws, then applies: same key, same result
     x = torch.rand(2, 32, 32, generator=torch.Generator().manual_seed(2))
-    a = plain(torch.Generator().manual_seed(4), x)
-    assert torch.equal(a, plain(torch.Generator().manual_seed(4), x))
+    a = plain(prng_key(4), x)
+    assert torch.equal(a, plain(prng_key(4), x))
 
 
 # -- GaussianBlur, RandomCropResize, Resize, RandomZCrop, ToTensor ------------------
@@ -190,7 +191,7 @@ def test_gaussian_blur_with_injected_draws_matches_jax(shape):
 
 def test_gaussian_blur_draws_by_distribution():
     blur = T.GaussianBlur(0.3, (0.5, 1.5))
-    apply, sig = blur.draw(torch.Generator().manual_seed(0), 4000)
+    apply, sig = blur.draw(prng_key(0), 4000)
     assert abs(float(apply.float().mean()) - 0.3) <= _sigma3(0.21, 4000)
     assert sig.min() >= 0.5 and sig.max() < 1.5
     assert abs(float(sig.mean()) - 1.0) <= _sigma3(1 / 12, 4000)
@@ -211,14 +212,14 @@ def test_random_crop_resize_compose_with_injected_params_matches_jax(hw):
     pts = [T.RandomCropResize((0.4, 0.8)), T.HFlip(0.5)]
     for jt, pt, (mt, ot) in zip(jts, pts, params):
         jt.affine_params = lambda key, bb, s, mt=mt, ot=ot: (jnp.asarray(mt), jnp.asarray(ot))
-        pt.affine_params = lambda gen, bb, s, mt=mt, ot=ot: (torch.from_numpy(mt),
+        pt.affine_params = lambda key, bb, s, mt=mt, ot=ot: (torch.from_numpy(mt),
                                                              torch.from_numpy(ot))
     rng = np.random.default_rng(1)
     img = rng.uniform(size=(b,) + hw).astype(np.float32)
     mask = (rng.uniform(size=(b,) + hw) > 0.6).astype(np.float32)
     want_img, want_mask = JT.Compose(*jts)(jax.random.PRNGKey(0), jnp.asarray(img),
                                            jnp.asarray(mask))
-    got_img, got_mask = T.Compose(*pts)(torch.Generator(), torch.from_numpy(img),
+    got_img, got_mask = T.Compose(*pts)(prng_key(0), torch.from_numpy(img),
                                         torch.from_numpy(mask))
     np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
@@ -228,7 +229,7 @@ def test_random_crop_resize_sampler_by_distribution():
     """The crop's share of the image is uniform on the scale range (where a
     try fits) and the map keeps the crop inside the image."""
     hw, n = (64, 64), 3000
-    m, o = T.RandomCropResize((0.4, 0.8)).affine_params(torch.Generator().manual_seed(0), n, hw)
+    m, o = T.RandomCropResize((0.4, 0.8)).affine_params(prng_key(0), n, hw)
     jm, jo = (np.asarray(a) for a in JT.RandomCropResize((0.4, 0.8)).affine_params(
         jax.random.PRNGKey(0), n, hw))
     area = (m[:, 0, 0] * m[:, 1, 1]).numpy()
@@ -250,7 +251,7 @@ def test_resize_matches_jax(shape, size):
     mask = (rng.uniform(size=shape) > 0.5).astype(np.float32)
     want_img, want_mask = JT.Resize(*size)(jax.random.PRNGKey(0), jnp.asarray(img),
                                            jnp.asarray(mask))
-    got_img, got_mask = T.Resize(*size)(torch.Generator(), torch.from_numpy(img),
+    got_img, got_mask = T.Resize(*size)(prng_key(0), torch.from_numpy(img),
                                         torch.from_numpy(mask))
     np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
@@ -268,9 +269,9 @@ def test_random_z_crop_with_injected_offsets_equals_jax():
     got_m = crop.crop(torch.from_numpy(mask), torch.from_numpy(z0).long())
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
-    drawn = crop.draw(torch.Generator().manual_seed(0), 2000, 20)
+    drawn = crop.draw(prng_key(0), 2000, 20)
     assert drawn.min() == 0 and drawn.max() == 12
-    one = crop(torch.Generator().manual_seed(0), torch.from_numpy(vol[0]))
+    one = crop(prng_key(0), torch.from_numpy(vol[0]))
     assert one.shape == (6, 5, 7)
 
 

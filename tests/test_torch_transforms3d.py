@@ -20,6 +20,7 @@ from ich_tpu.ops import transforms3d as JT3
 from ich_tpu.ops import warp as JW
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
+from ich_tpu_torch.utils.rng import prng_key
 from ich_tpu_torch.utils.config import TRANSFORMS
 
 torch.set_num_threads(2)
@@ -137,7 +138,8 @@ def test_flip3d_matches_jax(axes):
 @pytest.mark.parametrize("name", ["AdjustBrightness", "AdjustContrast"])
 def test_photometric_matches_jax(name, shape):
     """The JAX package's (apply, factor) draws injected: within 1e-7; the
-    mask passes through."""
+    port's own draws from the same key are the JAX package's, and its call
+    gives the JAX output; the mask passes through."""
     kw = {"AdjustBrightness": dict(p=0.5, low=-0.3, high=0.3),
           "AdjustContrast": dict(p=0.5, low=0.5, high=1.5)}[name]
     jt, pt = getattr(JT, name)(**kw), getattr(T, name)(**kw)
@@ -149,9 +151,12 @@ def test_photometric_matches_jax(name, shape):
     want, want_mask = jt(key, jnp.asarray(x), jnp.asarray(mask))
     got = pt.apply_factors(torch.from_numpy(x), torch.from_numpy(apply), torch.from_numpy(f))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-7)
-    out = pt(torch.Generator().manual_seed(0), torch.from_numpy(x), torch.from_numpy(mask))
+    papply, pf = pt._factors(prng_key(len(shape)), shape[0])
+    np.testing.assert_array_equal(papply.numpy(), apply)
+    np.testing.assert_array_equal(pf.numpy(), f)
+    out = pt(prng_key(len(shape)), torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_array_equal(out[1].numpy(), np.asarray(want_mask))
-    assert float(out[0].min()) >= 0.0 and float(out[0].max()) <= 1.0
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(want), rtol=0, atol=1e-7)
 
 
 @pytest.mark.parametrize("kw", [{}, {"flip_axes": (1, 2, 3)}, {"brightness": None},
@@ -216,4 +221,4 @@ def test_registry_names():
     assert isinstance(pipe.transforms[0], T.AdjustBrightness)
     assert str(pipe.transforms[0]) == str(JT.AdjustBrightness(p=1.0, low=0.1, high=0.1))
     x = torch.full((2, 4, 4), 0.5)
-    np.testing.assert_allclose(pipe(torch.Generator(), x).numpy(), 0.6, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(pipe(prng_key(0), x).numpy(), 0.6, rtol=0, atol=1e-7)
