@@ -60,9 +60,10 @@ its last line:
    tree of the config's five 512x512x32 CTs at 5 mm (resampled to 2.5 mm
    by the loader), 4 epochs x 25 steps, its artifacts checked and the mean
    loss falling; (b) three full-width train steps (batch 2 of 32x64x64,
-   TF32 off) on the card and on the CPU, held as phase 6's; (c) the
-   ``AffineAugment3D`` warp with injected parameters and the
-   ``DevicePatchSampler`` gather with injected draws, card against CPU; (d)
+   TF32 off) on the card and on the CPU, held as phase 6's; (c)
+   ``default_patch_augmentation`` (the ``AffineAugment3D`` warp and the
+   brightness jitter) and the ``DevicePatchSampler``'s draws, starts and
+   gather, each drawing from one key, card against CPU; (d)
    warm step times, patches/s, voxels/s, FLOP rate and peak memory at
    batch 4 of 64x128x128 in float32 with TF32, batch 8 and 64 of 64^3 in
    bf16, and batch 2 of 128^3 in bf16 with remat, and the host and device
@@ -139,7 +140,8 @@ its last line:
    the saved generator (256 x 768 PNGs); (b) the CLI again with one more
    epoch, resumed from (a)'s checkpoint: exactly one epoch runs; (c) card
    against CPU with TF32 off: three full-width steps at batch 2 with
-   injected masks (the step-1 D loss and L1; the 3-step D loss and L1
+   injected masks drawn from one key (the step-1 D loss and L1; the 3-step
+   D loss and L1
    within a quarter of what one optimizer step changes them by; 99% of each
    net's weights within a tenth of one Adam step and all within Adam's
    bound; the spectral-norm u and the BatchNorm statistics against the
@@ -175,7 +177,8 @@ its last line:
    with ``configs/unet2d.json`` gated on 2 channels, ``ATTN_SPLIT`` folds and
    epochs, each fold's artifacts; (e) card against CPU with TF32 off: three
    full-width steps at batch 2 of the AE (lambda 1), FCDD (injected
-   ellipses) and the gated U-Net, held as phase 10 (c) holds the GAN, the
+   ellipses drawn from one key) and the gated U-Net, held as phase 10 (c)
+   holds the GAN, the
    ellipse render (equal but at edge pixels), the receptive upsample and
    ``grad_heatmap`` (in float64; float32 printed); (f) ``ae_bs32``,
    ``fcdd_bs32`` and ``attn_unet2d_bs16``: warm step times with TF32,
@@ -257,8 +260,17 @@ its last line:
    ``truncated_normal`` held against ``RNG_KNOWN``, constants computed
    with JAX 0.9.0 on the CPU (integers equal; floats within ``RNG_ULPS``
    units in the last place, sums within that bound of each term), and
-   ``torch.equal`` to the same draws on this machine's CPU; the d4 f16
-   study U-Net and the ``configs/unet2d.json`` U-Net drawn from
+   ``torch.equal`` to the same draws on this machine's CPU; the keyed
+   draws of the 3D, GAN, FCDD and detector paths (``path_draws``: the
+   device sampler's (vi, start) over a 4-volume stack, the parameters of
+   ``default_patch_augmentation`` at batch 4, ``draw_ff_masks`` at the GAN
+   config's batch 16 of 256^2, ``draw_ellipse_params`` at
+   ``configs/fcdd.json``'s batch 32 of 256^2 and with noise, the
+   detector's W1 null sample) on the card, held against
+   ``RNG_KNOWN["paths"]`` (the JAX package's draws from the same keys) and
+   ``torch.equal`` to the same draws on this machine's CPU, with their
+   times; the d4 f16 study U-Net and the ``configs/unet2d.json`` U-Net
+   drawn from
    ``prng_key(42)`` on the card (``init_like_flax``), held against
    ``NET_KNOWN`` (flax's ``init`` checksums) and equal to the same nets
    drawn on the CPU; the draws' and the inits' times. The EDT launches
@@ -296,7 +308,7 @@ import torch.nn.functional as F
 from ich_tpu_torch import parallel, serve
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.bmp import read_bmp, save_bmp_gray
-from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D
+from ich_tpu_torch.data.core import LabeledSliceDataset, SliceDataset2D, VolumeDataset3D
 from ich_tpu_torch.data.datasets import load_rsna_slices, load_segich_3d, write_rsna_slice_info
 from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import (
@@ -354,7 +366,7 @@ from ich_tpu_torch.ops.masks import (
 )
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops.transforms import build_pipeline
-from ich_tpu_torch.ops.transforms3d import AffineAugment3D, default_patch_augmentation
+from ich_tpu_torch.ops.transforms3d import default_patch_augmentation
 from ich_tpu_torch.ops import sliding_window as sw
 from ich_tpu_torch.ops.losses import discounted_l1_loss
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
@@ -362,7 +374,7 @@ from ich_tpu_torch.postprocessing import analyse_exp
 from ich_tpu_torch.train import checkpoint as ckpt
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
 from ich_tpu_torch.train.gan import SNPatchGAN
-from ich_tpu_torch.train.inpaint_ad import robust_anomaly_detect
+from ich_tpu_torch.train.inpaint_ad import InpaintAnomalyDetector, robust_anomaly_detect
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D, sample_patches
 from ich_tpu_torch.train.ssl import ContextRestoration, Contrastive
@@ -471,7 +483,93 @@ RNG_KNOWN = {
     "tn_head": [0.4114566743373871, 0.5575056672096252, -1.0635087490081787,
                 -0.35603460669517517],
     "tn_sum": 173.10044755474286,
+    # the keyed draws of the 3D, GAN, FCDD and detector paths (path_draws):
+    # path_answers of the JAX package's draws from the same keys
+    "paths": {
+        "sampler_vi": {"n": 32, "sum": 44, "wsum": 697, "head": [0, 2, 3, 1]},
+        "sampler_start": {"n": 96, "sum": 807, "wsum": 40552, "head": [0, 0, 0, 23]},
+        "aug_m": {"n": 16, "sum": 2.4629910783842206,
+                  "head": [0.98853999376297, 0.15095919370651245,
+                           0.15095919370651245, -0.98853999376297]},
+        "aug_apply": {"n": 4, "sum": 3, "wsum": 8, "head": [1, 0, 1, 1]},
+        "aug_factor": {"n": 4, "sum": 0.04224950820207596,
+                       "head": [0.09367463737726212, -0.046822525560855865,
+                                -0.08913739025592804, 0.08453478664159775]},
+        "ff_n_strokes": {"n": 16, "sum": 31, "wsum": 262, "head": [2, 3, 1, 2]},
+        "ff_n_vert": {"n": 48, "sum": 461, "wsum": 11517, "head": [12, 8, 10, 14]},
+        "ff_width": {"n": 48, "sum": 838, "wsum": 20565, "head": [19, 20, 15, 17]},
+        "ff_sx": {"n": 48, "sum": 6149.1076736450195,
+                  "head": [127.46029663085938, 142.79544067382812,
+                           89.03985595703125, 146.97006225585938]},
+        "ff_sy": {"n": 48, "sum": 5962.071632385254,
+                  "head": [102.1013412475586, 27.953819274902344,
+                           108.66366577148438, 109.00714111328125]},
+        "ff_beta": {"n": 48, "sum": 143.2448899373412,
+                    "head": [0.7599117755889893, 4.199215888977051,
+                             5.332579612731934, 3.322474479675293]},
+        "ff_angs": {"n": 672, "sum": 829.3682886958122,
+                    "head": [1.4471261501312256, 1.172144889831543,
+                             0.548515260219574, 1.5591049194335938]},
+        "ff_lens": {"n": 672, "sum": 16350.0, "head": [30.0, 14.0, 18.0, 19.0]},
+        "ff_n_sp": {"n": 16, "sum": 78, "wsum": 595, "head": [7, 6, 8, 8]},
+        "ff_cy": {"n": 144, "sum": 19401.0, "head": [166.0, 98.0, 92.0, 227.0]},
+        "ff_cx": {"n": 144, "sum": 18095.0, "head": [155.0, 94.0, 227.0, 163.0]},
+        "ff_r": {"n": 144, "sum": 372.0, "head": [2.0, 4.0, 4.0, 4.0]},
+        "ell_n": {"n": 32, "sum": 187, "wsum": 3225, "head": [2, 1, 2, 8]},
+        "ell_cy": {"n": 288, "sum": 37095.40808105469,
+                   "head": [120.0615234375, 125.65838623046875,
+                            125.2942886352539, 162.4691619873047]},
+        "ell_cx": {"n": 288, "sum": 36817.00456237793,
+                   "head": [108.61370849609375, 94.18019104003906, 225.84375, 124.4522933959961]},
+        "ell_major": {"n": 288, "sum": 3807.6905851364136,
+                      "head": [13.408785820007324, 18.063026428222656,
+                               1.6362972259521484, 16.17237091064453]},
+        "ell_minor": {"n": 288, "sum": 2061.103354215622,
+                      "head": [10.990674018859863, 10.796528816223145,
+                               1.123619794845581, 10.391000747680664]},
+        "ell_theta": {"n": 288, "sum": 870.5661054281518,
+                      "head": [4.735177040100098, 6.195896148681641,
+                               4.189301490783691, 0.2906826138496399]},
+        "ell_value": {"n": 288, "sum": 156.8861337378621,
+                      "head": [0.44482874870300293, 0.6658139228820801,
+                               0.7056679725646973, 0.9721066951751709]},
+        "ell_noise": {"n": 262144, "sum": 28.45164681020779,
+                      "head": [0.011048129759728909, -0.00012823216093238443,
+                               0.023718692362308502, 0.06125449016690254]},
+        "null_first": {"n": 262144, "sum": -557.7616550581552,
+                       "head": [-0.02830461598932743, 0.4671318531036377,
+                                0.2957029640674591, 0.15354591608047485]},
+        "null_cleanup": {"n": 262144, "sum": 357.9261533053859,
+                         "head": [0.6057640314102173, 0.7990440726280212,
+                                  -0.9089270234107971, -0.6352575421333313]},
+    },
 }
+# phase 15's path draws, from fold_in(PRNGKey(PATH_SEED), i) for i = 0..4:
+# the device sampler's (vi, start) over a 4-volume stack at the patch and
+# pos_frac of configs/unet3d.json; default_patch_augmentation's parameters at
+# its batch 4; the free-form masks of configs/inpainting_gan.json (batch 16
+# of 256^2, its "mask"); the ellipses of configs/fcdd.json (batch 32 of
+# 256^2, its "drawing_params"), and with noise at PATH_NOISE_BATCH; the
+# detector's W1 null sample at the JAX script's defaults on 256^2 (holes
+# 32x32, step 16: 4 samples a pixel), for PRNGKey(PATH_SEED) and fold_in(., 1)
+PATH_SEED = 42
+PATH_PATCH = (64, 128, 128)
+PATH_POS_FRAC = 0.5
+PATH_SAMPLER_BATCH = 32
+# (shape, bleed box z0, z1, y0, y1, x0, x1 or None): shorter than the patch
+# along D, exactly the patch, larger, and a bleed of more than max_pos voxels
+PATH_SAMPLER_VOLS = (((70, 160, 144), (10, 30, 40, 80, 50, 70)), ((64, 128, 128), None),
+                     ((96, 200, 180), (44, 56, 100, 140, 20, 60)),
+                     ((40, 140, 150), (5, 8, 10, 20, 100, 140)))
+PATH_AUG_BATCH = 4
+PATH_GAN = (256, 16)  # (size, batch)
+PATH_MASK_KW = {"n_draw": [1, 4], "vertex": [5, 15], "brush_width": [10, 25],
+                "length": [10, 40], "n_salt_pepper": [0, 10], "salt_pepper_radius": [1, 5]}
+PATH_FCDD = (256, 32)
+PATH_ELLIPSE_KW = {"n_ellipse": [1, 10], "major_axis": [1, 25], "minor_axis": [1, 25],
+                   "intensity": [0.1, 1.0]}
+PATH_NOISE, PATH_NOISE_BATCH = 0.05, 4  # 4 x 256^2 words: rng's device path
+PATH_NULL_SHAPE = (4, 256, 256)
 # flax's init of the JAX UNet from PRNGKey(42), through from_jax: the count,
 # sum and sum of squares of every float entry of the state_dict, and the
 # first three weights of down_block.0.conv1
@@ -1359,7 +1457,7 @@ def _hold3d_run(cfg: dict, dev, imgs: np.ndarray, msks: np.ndarray, threads: int
     x, y = (torch.from_numpy(a).to(t.device) for a in (imgs, msks))
     losses = []
     for i in range(3):
-        losses.append(float(t._step(state, x, y, t._generator(K(i)))))
+        losses.append(float(t._step(state, x, y, K(i))))
         if i == 0:
             grad = torch.cat([p.grad.flatten().cpu() for p in t.unet.parameters()])
     return {"losses": losses, "grad": grad,
@@ -1406,35 +1504,33 @@ def _train3d_hold(cfg: dict, train) -> None:
 
 
 def _train3d_aug_sampler_hold(cfg: dict, train) -> None:
-    """(c) the ``AffineAugment3D`` warp with injected parameters and the
-    device sampler's gather with injected draws, card against CPU."""
+    """(c) ``default_patch_augmentation`` and the device sampler, each
+    drawing from one key, card against CPU: the augmented batch (the
+    ``AffineAugment3D`` warp and the brightness jitter) and the sampler's
+    draws, starts and gathered patches."""
     _, patch, b, _, _ = TIMED3D[0]
-    aug = AffineAugment3D()
-    m, o = aug.affine_params(torch.Generator().manual_seed(SEED), b)
-    aug.affine_params = lambda gen, bb: (m.to(gen.device), o.to(gen.device))
+    aug = default_patch_augmentation()
     imgs, msks = sample_patches(np.random.default_rng(SEED + 1), train, b, patch,
                                 cfg["train"]["pos_frac"])
     x, y = torch.from_numpy(imgs)[..., None], torch.from_numpy(msks)[..., None]
-    want = aug(torch.Generator(), x, y)
-    got = aug(torch.Generator(device=DEV), x.to(DEV), y.to(DEV))
+    want = aug(K(SEED), x, y)
+    got = aug(K(SEED), x.to(DEV), y.to(DEV))
     err = float((got[0].cpu() - want[0]).abs().max())
     mask_eq = bool(torch.equal(got[1].cpu(), want[1]))
-    print(f"train3d AffineAugment3D hold {tuple(x.shape)}: masks equal {mask_eq}, image max "
-          f"err {err!r} (tolerance 1e-5)")
-    check(mask_eq and err <= 1e-5, "train3d: card and cpu warps disagree")
+    print(f"train3d default_patch_augmentation hold {tuple(x.shape)} from one key: masks equal "
+          f"{mask_eq}, image max err {err!r} (tolerance 1e-5)")
+    check(mask_eq and err <= 1e-5, "train3d: card and cpu augmentations disagree")
 
-    rng = np.random.default_rng(SEED)
-    u = torch.from_numpy(rng.uniform(size=64).astype(np.float32))
-    r = torch.from_numpy(rng.integers(0, 1 << 62, size=(64, 5), dtype=np.int64))
     out = {}
     for dev in ("cpu", DEV):
         s = DevicePatchSampler(train, patch, cfg["train"]["pos_frac"], device=dev)
-        vi, start = s.starts(u.to(dev), r.to(dev))
-        out[dev] = [vi.cpu(), start.cpu()] + [a.cpu() for a in s.gather(vi, start)]
+        draws = s.draw(K(SEED), 64)
+        vi, start = s.starts(draws)
+        out[dev] = [draws, vi.cpu(), start.cpu()] + [a.cpu() for a in s.gather(vi, start)]
         del s
     equal = all(torch.equal(a, c) for a, c in zip(out["cpu"], out[DEV]))
-    print(f"train3d DevicePatchSampler hold, 64 injected draws of {patch} over {len(train)} "
-          f"volumes: starts and patches equal on card and cpu {equal}")
+    print(f"train3d DevicePatchSampler hold, 64 draws of {patch} over {len(train)} volumes from "
+          f"one key: draws, starts and patches equal on card and cpu {equal}")
     check(equal, "train3d: card and cpu patch samplers disagree")
 
 
@@ -1500,7 +1596,7 @@ def _sampler_times(t: UNet3D, train, sampler, pos_frac: float) -> None:
             if name == "host":
                 return [t._to_device(a) for a in sample_patches(
                     rng, train, SAMPLER_BATCH, SAMPLER_PATCH, pos_frac)]
-            return sampler(t._generator(K(i)), SAMPLER_BATCH)
+            return sampler(K(i), SAMPLER_BATCH)
 
         one(0)  # warm-up (the host sampler's positive-voxel cache)
         torch.cuda.synchronize()
@@ -2549,8 +2645,7 @@ def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
     n = torch.get_num_threads()
     size = cfg["data"]["size"]
     x = normal[:GAN_HOLD_BATCH]
-    masks = random_ff_masks(torch.Generator().manual_seed(SEED), len(x), (size, size),
-                            **cfg["mask"])
+    masks = random_ff_masks(K(SEED), len(x), (size, size), **cfg["mask"])
     card, cpu, ref = (_gan_hold_run(cfg, dev, x, masks, threads)
                       for dev, threads in ((DEV, n), ("cpu", n), ("cpu", max(1, n // 2))))
     torch.set_num_threads(n)
@@ -2587,7 +2682,8 @@ def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
     q99_ref = {k: _quantile(ref[k] - cpu[k], 0.99) for k in ("g", "d")}
     diffs = {k: float((card[k] - cpu[k]).abs().max()) for k in ("g", "d", "u", "stats")}
     refs = {k: float((ref[k] - cpu[k]).abs().max()) for k in ("g", "d", "u", "stats")}
-    print(f"gan (c) step hold, full width, batch {len(x)} of {size}^2, injected masks, TF32 off, "
+    print(f"gan (c) step hold, full width, batch {len(x)} of {size}^2, injected masks from one "
+          f"key, TF32 off, "
           f"card vs cpu ({n} threads; reference: cpu with {max(1, n // 2)} threads vs {n}): "
           f"step-1 D loss and L1 rel diff {step1!r} (tolerance 1e-5); [G, D, L1] over 3 steps "
           f"card {card['losses']!r} cpu {cpu['losses']!r}; D loss and L1 max rel diff {traj!r} "
@@ -2639,7 +2735,7 @@ def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
           "gan: contextual-attention generator card and cpu disagree")
 
     b = cfg["train"]["batch_size"]
-    draws = draw_ff_masks(torch.Generator().manual_seed(SEED + 1), b, (size, size), **cfg["mask"])
+    draws = draw_ff_masks(K(SEED + 1), b, (size, size), **cfg["mask"])
     on_cpu = render_ff_masks(draws, (size, size))
     card_draws = {k: v.to(DEV) for k, v in draws.items()}
     on_card = render_ff_masks(card_draws, (size, size)).cpu()
@@ -2654,8 +2750,8 @@ def _gan_holds(cfg: dict, normal: np.ndarray) -> None:
                             .astype(np.float32))
     hyst_eq = torch.equal(morph.hysteresis_threshold(dmap, 2.0, 4.0),
                           morph.hysteresis_threshold(dmap.to(DEV), 2.0, 4.0).cpu())
-    print(f"gan (c) mask render {b}x{size}^2 with the config's ranges, draws from one CPU "
-          f"generator: {int(diff.sum())} pixels differ card vs cpu, all within 1e-4 of a "
+    print(f"gan (c) mask render {b}x{size}^2 with the config's ranges, draws from one key: "
+          f"{int(diff.sum())} pixels differ card vs cpu, all within 1e-4 of a "
           f"stroke's edge {not (diff & ~edges).any()} ({int(edges.sum())} such pixels); mask "
           f"share {float(on_cpu.mean())!r}; render on the card {render_ms!r} ms; dilation, "
           f"erosion, opening, closing at 3, 5, 7 equal {morph_eq}; hysteresis equal {hyst_eq}")
@@ -2724,18 +2820,42 @@ def _ad_detect(cfg: dict, work: str, gan_out: str) -> None:
     det.detect(img)
     torch.cuda.synchronize()
     detect_s, detect_calls = time.perf_counter() - t0, list(calls)
+    secs = detector_seconds(det, img, "ad (d)", warm=False)
     calls.clear()
     t0 = time.perf_counter()
     final, amap = robust_anomaly_detect(img, det)
     torch.cuda.synchronize()
     robust_s = time.perf_counter() - t0
-    print(f"ad (d) one slice with a lesion: detect {detect_s!r} s with {len(detect_calls)} "
+    print(f"ad (d) one slice with a lesion: detect {detect_s!r} s cold, {secs['kl']!r} s warm "
+          f"(W1 {secs['w1']!r} s) with {len(detect_calls)} "
           f"generator calls (batch sizes {sorted(set(detect_calls))}, "
           f"{sum(c == 1 for c in detect_calls)} of batch 1); robust_anomaly_detect {robust_s!r} "
           f"s with {len(calls)} generator calls ({sum(c == 1 for c in calls)} of batch 1); "
           f"anomaly-map share above 0 {float((amap > 0).mean())!r}, final mask share "
           f"{float(final.mean())!r}")
     check(final.shape == img.shape and np.isfinite(amap).all(), "ad: robust_anomaly_detect")
+
+
+def detector_seconds(det, image: np.ndarray, label: str, warm: bool = True) -> dict:
+    """Wall seconds of one ``det.detect(image)`` with the KL distance
+    (``"kl"``) and one with W1 (``"w1"``, its null sample drawn on the
+    detector's device), after a warm-up detect unless ``warm`` is false;
+    printed under ``label``. ``det``'s own distance is restored."""
+    w1 = det.use_wasserstein
+    out = {}
+    if warm:
+        det.detect(image)
+    for name, flag in (("kl", False), ("w1", True)):
+        det.use_wasserstein = flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect(image)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    det.use_wasserstein = w1
+    print(f"{label} detector seconds a slice of {image.shape}, warm: detect with KL "
+          f"{out['kl']!r} s, with W1 {out['w1']!r} s")
+    return out
 
 
 OP_GROUPS_GAN = (("conv backward", ("convolution_backward",)), ("conv forward", ("conv",)),
@@ -2767,8 +2887,7 @@ def _gan_step_times(cfg: dict, normal: np.ndarray):
         flops = compiled_flops(t._train_step, state, batches[0], K(99))
         tflops = flops / ms / 1e9
         g = t.generator.eval()
-        m = random_ff_masks(torch.Generator(device=DEV).manual_seed(SEED), bs, (size, size),
-                            **cfg["mask"])[..., None]
+        m = random_ff_masks(K(SEED), bs, (size, size), DEV, **cfg["mask"])[..., None]
         x = batches[0][..., None]
 
         def infer(k):
@@ -3075,7 +3194,7 @@ def _ad_inputs(kind: str, cfgs: dict, images: np.ndarray, masks: np.ndarray) -> 
     if kind == "ae":
         return [torch.from_numpy(images[..., 0])]
     if kind == "fcdd":
-        ell = draw_ellipses_batch(torch.Generator().manual_seed(SEED + 11), b, (size, size),
+        ell = draw_ellipses_batch(K(SEED + 11), b, (size, size),
                                   **cfgs["fcdd"]["anomaly"]["drawing_params"])
         return [torch.from_numpy(images[..., 0]), torch.zeros(b, dtype=torch.int32), ell,
                 torch.tensor([0.2, 0.7] * (b // 2))]
@@ -3084,7 +3203,7 @@ def _ad_inputs(kind: str, cfgs: dict, images: np.ndarray, masks: np.ndarray) -> 
 
 def _ad_hold_step(kind: str, t, state, args: list):
     if kind == "ae":
-        return t._step(state, args[0], None)
+        return t._step(state, args[0], K(SEED))  # the key seeds dropout's generator
     if kind == "fcdd":
         return t._step(state, args[0], args[1], None, ellipses=args[2], u=args[3])
     return t._step(state, args[0], args[1], K(SEED))
@@ -3175,8 +3294,7 @@ def _ad_holds(cfgs: dict, images: np.ndarray, masks: np.ndarray) -> None:
 
     b = cfgs["fcdd"]["train"]["batch_size"]
     params = cfgs["fcdd"]["anomaly"]["drawing_params"]
-    draws = draw_ellipse_params(torch.Generator().manual_seed(SEED + 12), b, (size, size),
-                                **params)
+    draws = draw_ellipse_params(K(SEED + 12), b, (size, size), **params)
     on_cpu = render_ellipses(draws, (size, size))
     card_draws = {k: v.to(DEV) for k, v in draws.items()}
     on_card = render_ellipses(card_draws, (size, size)).cpu()
@@ -3189,7 +3307,7 @@ def _ad_holds(cfgs: dict, images: np.ndarray, masks: np.ndarray) -> None:
     up_card = receptive_upsample(s.to(DEV), (size, size), std=std).cpu()
     up_err = float((up_card - up_cpu).abs().max() / up_cpu.abs().max())
     print(f"ad (e) ellipse render {b}x{size}^2 with {FCDD_CFG}'s drawing params, draws from one "
-          f"CPU generator: {int(differ.sum())} pixels differ card vs cpu, all within 1e-4 of an "
+          f"key: {int(differ.sum())} pixels differ card vs cpu, all within 1e-4 of an "
           f"ellipse's edge {not (differ & ~edges).any()} ({int(edges.sum())} such pixels); "
           f"ellipse share {float((on_cpu > 0).float().mean())!r}; render on the card "
           f"{render_ms!r} ms; receptive upsample of {tuple(s.shape)} to {size}^2 (gauss_std "
@@ -3501,7 +3619,7 @@ def _mg_unet3d(mesh, work: str, log) -> None:
     x, y = (torch.from_numpy(np.stack([a[z:z + pd, h:h + ph, w:w + pw] for z, h, w in starts])
                              .astype(np.float32)).to(dev) for a in (vol, mask))
     torch.backends.cudnn.allow_tf32 = False
-    step = lambda t, state, i: t._step(state, x, y, t._generator(K(i)))  # noqa: E731
+    step = lambda t, state, i: t._step(state, x, y, K(i))  # noqa: E731
     runs = [_mg_steps(build_trainer3d(cfg, build_unet3d_from_cfg(cfg["net"], seed=SEED,
                                                                  device=dev), dev,
                                       batch_size=bs, mesh=m), cfg["train"]["steps_per_epoch"],
@@ -4123,6 +4241,129 @@ def _sum_bound(x: torch.Tensor) -> float:
     return float(x.double().abs().sum()) * RNG_ULPS * 2.0 ** -23
 
 
+def sampler_stack() -> tuple:
+    """The volumes and masks of ``PATH_SAMPLER_VOLS``: 0.25 outside the
+    bleed, 0.75 inside."""
+    vols, masks = [], []
+    for shape, box in PATH_SAMPLER_VOLS:
+        m = np.zeros(shape, np.float32)
+        if box is not None:
+            z0, z1, y0, y1, x0, x1 = box
+            m[z0:z1, y0:y1, x0:x1] = 1.0
+        vols.append(0.25 + 0.5 * m)
+        masks.append(m)
+    return vols, masks
+
+
+def path_draws(dev, sampler: DevicePatchSampler) -> tuple:
+    """The keyed draws of the 3D, GAN, FCDD and detector paths through the
+    port's draw functions, on ``dev`` (``sampler`` a ``sampler_stack``
+    sampler there); returns the draws by name and each group's wall ms."""
+    key = prng.prng_key(PATH_SEED)
+    ks = [prng.fold_in(key, i) for i in range(5)]
+    hw_gan, hw_fcdd = (PATH_GAN[0],) * 2, (PATH_FCDD[0],) * 2
+    det = InpaintAnomalyDetector(lambda a, b: a, device=dev, seed=PATH_SEED)
+
+    def augmentation():
+        aug = default_patch_augmentation()  # AffineAugment3D, AdjustBrightness
+        ka, kb = prng.split(ks[1], len(aug.transforms))
+        m, _ = aug.transforms[0].affine_params(ka, PATH_AUG_BATCH)
+        apply, factor = aug.transforms[1]._factors(kb, PATH_AUG_BATCH)
+        return {"aug_m": m.to(dev), "aug_apply": apply.to(dev), "aug_factor": factor.to(dev)}
+
+    groups = {
+        "sampler": lambda: dict(zip(("sampler_vi", "sampler_start"), sampler.starts(
+            sampler.draw(ks[0], PATH_SAMPLER_BATCH)))),
+        "augmentation": augmentation,
+        "ff_masks": lambda: {"ff_" + k: v for k, v in draw_ff_masks(
+            ks[2], PATH_GAN[1], hw_gan, device=dev, **PATH_MASK_KW).items()},
+        "ellipses": lambda: {"ell_" + k: v for k, v in draw_ellipse_params(
+            ks[3], PATH_FCDD[1], hw_fcdd, device=dev, **PATH_ELLIPSE_KW).items()},
+        "ellipse_noise": lambda: {"ell_noise": draw_ellipse_params(
+            ks[4], PATH_NOISE_BATCH, hw_fcdd, noise=PATH_NOISE, device=dev,
+            **PATH_ELLIPSE_KW)["noise"]},
+        "null_sample": lambda: {
+            "null_first": det._null_normals(key, PATH_NULL_SHAPE),
+            "null_cleanup": det._null_normals(prng.fold_in(key, 1), PATH_NULL_SHAPE)},
+    }
+    out, ms = {}, {}
+    for name, fn in groups.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.update(fn())
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def path_answers(draws: dict) -> dict:
+    """``RNG_KNOWN["paths"]``'s form of ``draws`` (arrays by name): the size,
+    sum and first four values of each, and for integers and flags also the
+    sum weighted by position."""
+    out = {}
+    for name, x in draws.items():
+        a = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+        flat = a.reshape(-1)
+        if a.dtype.kind == "f":
+            flat = flat.astype(np.float32)
+            out[name] = {"n": int(flat.size), "sum": float(flat.astype(np.float64).sum()),
+                         "head": [float(v) for v in flat[:4]]}
+        else:
+            flat = flat.astype(np.int64)
+            out[name] = {"n": int(flat.size), "sum": int(flat.sum()),
+                         "wsum": int((flat * np.arange(1, flat.size + 1)).sum()),
+                         "head": [int(v) for v in flat[:4]]}
+    return out
+
+
+def _hold_paths(draws: dict) -> list:
+    """The names of ``draws`` that miss ``RNG_KNOWN["paths"]``: integers
+    must be equal, floats within ``RNG_ULPS`` on the head and the sum within
+    that bound of each term."""
+    got, known = path_answers(draws), RNG_KNOWN["paths"]
+    missed = sorted(set(known) ^ set(got))
+    for name in sorted(set(known) & set(got)):
+        g, k = got[name], known[name]
+        if "wsum" in k:
+            ok = g == k
+        else:
+            x = draws[name].float()
+            ok = (g["n"] == k["n"] and _ulps(g["head"], k["head"]) <= RNG_ULPS
+                  and abs(g["sum"] - k["sum"]) <= _sum_bound(x))
+        if not ok:
+            missed.append(name)
+    return missed
+
+
+def _phase_rng_paths() -> None:
+    """15 (c): the paths' keyed draws on the card against JAX's answers and
+    against the same draws on this machine's CPU, with their times."""
+    vols, masks = sampler_stack()
+    data = VolumeDataset3D(vols, masks, np.arange(len(vols)))
+    samplers = {dev: DevicePatchSampler(data, PATH_PATCH, PATH_POS_FRAC, device=dev)
+                for dev in (DEV, "cpu")}
+    path_draws(DEV, samplers[DEV])  # warm-up
+    card, card_ms = path_draws(DEV, samplers[DEV])
+    cpu, cpu_ms = path_draws("cpu", samplers["cpu"])
+    on_card = all(v.device.type == "cuda" for v in card.values())
+    missed = _hold_paths(card)
+    differ = [k for k in card if not torch.equal(card[k].cpu(), cpu[k])]
+    n_pos = int(card["sampler_vi"].numel())
+    print(f"rng paths: {len(card)} keyed draws of the 3D, GAN, FCDD and detector paths from "
+          f"fold_in(PRNGKey({PATH_SEED}), i) (the device sampler's (vi, start), {n_pos} draws "
+          f"over {len(vols)} volumes at patch {PATH_PATCH}; default_patch_augmentation at batch "
+          f"{PATH_AUG_BATCH}; free-form masks {PATH_GAN[1]} x {PATH_GAN[0]}^2; ellipses "
+          f"{PATH_FCDD[1]} x {PATH_FCDD[0]}^2 and noise at batch {PATH_NOISE_BATCH}; the W1 null "
+          f"sample {PATH_NULL_SHAPE} twice), on the card {on_card}: against JAX's answers "
+          f"(integers equal, floats within {RNG_ULPS} ulp) missed {missed}; card equals this "
+          f"machine's CPU (torch.equal) but for {differ}; ms on the card "
+          f"{ {k: round(v, 3) for k, v in card_ms.items()} }, on the CPU "
+          f"{ {k: round(v, 3) for k, v in cpu_ms.items()} }")
+    check(on_card, "rng: a path draw did not land on the card")
+    check(not missed, f"rng: path draws differ from jax.random's: {missed}")
+    check(not differ, f"rng: card and cpu path draws differ: {differ}")
+
+
 def phase_rng() -> dict:
     """15. jax.random's threefry streams and flax's init on the card, held
     against JAX's constants and this machine's CPU; returns the EDT
@@ -4166,6 +4407,7 @@ def phase_rng() -> dict:
           "rng: the card's floats differ from jax.random's")
     check(same, "rng: card and cpu draws differ")
 
+    _phase_rng_paths()
     for name, (net_cfg, known) in NET_KNOWN.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -2,10 +2,11 @@
 :mod:`ich_tpu.data.patch_sampler`).
 
 The whole dataset lives on the device, volumes zero-padded to a common
-shape and stacked once, masks as uint8; each batch is one batched draw from
-the step's ``torch.Generator`` and one batched gather, so the training loop
-moves no patch bytes through the host. The semantics are the host
-sampler's (:func:`ich_tpu_torch.train.segmentation3d.sample_patches`): with
+shape and stacked once, masks as uint8; each batch is drawn from the
+step's jax.random key as the JAX package's ``_sample_batch`` draws it, then
+gathered in one batched gather, so the training loop moves no patch bytes
+through the host. The semantics are the host sampler's
+(:func:`ich_tpu_torch.train.segmentation3d.sample_patches`): with
 probability ``pos_frac`` the patch is centred on a uniformly chosen
 positive voxel of its volume (start clipped into bounds), else its start is
 uniform; a volume's extent is its own padded up to the patch size, so a
@@ -14,6 +15,15 @@ positive-voxel table keeps at most ``max_pos`` entries, a uniform
 subsample drawn from ``np.random.default_rng(seed_pad)`` when there are
 more. Masks must be binary (0 and one positive value); the constructor
 raises otherwise.
+
+The draws (:mod:`ich_tpu_torch.utils.rng`) follow the JAX package's key
+tree: sample i takes ``split(key, B)[i]``, which splits into ``kv, kb, kp,
+ku``: the volume ``randint(kv, (), 0, n)``, the branch ``bernoulli(kb,
+pos_frac)``, the table entry ``randint(kp, (), 0, max(cnt, 1))`` and the
+uniform start ``randint(ku, (3,), 0, lim + 1)``, whose bounds depend on the
+drawn volume. They run on the host from host copies of the volumes'
+extents and positive-voxel counts, all B samples at once, and reach the
+device in one copy; the table lookup, the clip and the gather run there.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ich_tpu_torch.utils import rng
 
 
 def estimate_hbm_bytes(dataset, patch_size: Sequence[int], max_pos: int = 16384) -> int:
@@ -45,14 +57,9 @@ def is_binary_mask(m: np.ndarray) -> bool:
     return not mmax or bool(((m == 0) | (m == mmax)).all())
 
 
-# the uniform draws are int64 reduced modulo their bound: at bounds below
-# 2^22 the modulo bias is below 2^-40
-_DRAW_HIGH = 1 << 62
-
-
 class DevicePatchSampler:
     """Batched 3D patch sampler over a device-resident volume stack;
-    ``sampler(gen, batch_size)`` -> (B, pd, ph, pw) float32 images and
+    ``sampler(key, batch_size)`` -> (B, pd, ph, pw) float32 images and
     masks on ``device``."""
 
     def __init__(
@@ -101,35 +108,40 @@ class DevicePatchSampler:
         self.pos_frac = float(pos_frac)
         self.device = dev
         self.dims = torch.from_numpy(dims).to(dev)
+        self._patch_dev = torch.as_tensor(patch, device=dev)
+        # the draws' bounds, on the host
+        self._dims_host = dims.astype(np.int64)
+        self._cnt_host = pos_cnt.astype(np.int64)
         self.pos_tab = torch.from_numpy(pos_tab).to(dev)
         self.pos_cnt = torch.from_numpy(pos_cnt).to(dev)
         self.vols = torch.from_numpy(vols).to(dev)
         self.msks = torch.from_numpy(msks).to(dev)
         self.hbm_bytes = vols.nbytes + msks.nbytes + pos_tab.nbytes
 
-    def draw(self, gen: torch.Generator, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The batch's raw draws, in this order: (B,) uniforms on [0, 1)
-        for the positive-or-uniform branch, then (B, 5) int64 on [0, 2^62)
-        for the volume, the table entry and the three uniform starts."""
-        u = torch.rand(batch_size, generator=gen, device=self.device)
-        r = torch.randint(0, _DRAW_HIGH, (batch_size, 5), generator=gen, device=self.device,
-                          dtype=torch.int64)
-        return u, r
+    def draw(self, key, batch_size: int) -> torch.Tensor:
+        """The batch's draws from ``key`` on the host, as one (B, 6) int64
+        tensor: the volume index, the branch (1: centred on a positive
+        voxel; 0 where the volume has none), the table entry and the three
+        uniform starts."""
+        kv, kb, kp, ku = rng.split(rng.split(key, batch_size), 4).unbind(-2)
+        vi = rng.randint(kv, (), 0, len(self._dims_host))
+        cnt = torch.from_numpy(self._cnt_host)[vi]
+        use_pos = rng.bernoulli(kb, self.pos_frac, ()) & (cnt > 0)
+        j = rng.randint(kp, (), 0, cnt.clamp(min=1))
+        lim = torch.from_numpy(self._dims_host)[vi] - torch.as_tensor(self.patch)
+        start_uni = rng.randint(ku, (3,), 0, lim + 1)
+        return torch.cat([torch.stack([vi, use_pos.long(), j], 1), start_uni], 1)
 
-    def starts(self, u: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(vi, start) from the raw draws: (B,) volume indices and (B, 3)
-        int64 patch starts."""
-        n = self.vols.shape[0]
-        vi = r[:, 0] % n
-        lim = self.dims[vi].long() - torch.as_tensor(self.patch, device=self.device)
-        cnt = self.pos_cnt[vi].long()
-        use_pos = (u < self.pos_frac) & (cnt > 0)
-        j = r[:, 1] % cnt.clamp(min=1)
+    def starts(self, draws: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(vi, start) on the device from :meth:`draw`'s (B, 6) draws: (B,)
+        volume indices and (B, 3) int64 patch starts, the positive branch's
+        start ``clip(centre - patch // 2, 0, lim)``."""
+        draws = rng.to_device(draws, self.device)
+        vi, use_pos, j = draws[:, 0], draws[:, 1].bool(), draws[:, 2]
+        lim = self.dims[vi].long() - self._patch_dev
         center = self.pos_tab[vi, j].long()
-        half = torch.as_tensor([p // 2 for p in self.patch], device=self.device)
-        start_pos = torch.minimum((center - half).clamp(min=0), lim)
-        start_uni = r[:, 2:] % (lim + 1)  # exact integers in [0, lim]
-        return vi, torch.where(use_pos[:, None], start_pos, start_uni)
+        start_pos = torch.minimum((center - self._patch_dev // 2).clamp(min=0), lim)
+        return vi, torch.where(use_pos[:, None], start_pos, draws[:, 3:])
 
     def gather(self, vi: torch.Tensor, start: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (B, pd, ph, pw) patches at ``start`` of volumes ``vi``: one
@@ -143,5 +155,5 @@ class DevicePatchSampler:
                (start[:, 2:3] + ar[2]).reshape(b, 1, 1, pw))
         return self.vols[idx], self.msks[idx].to(torch.float32)
 
-    def __call__(self, gen: torch.Generator, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.gather(*self.starts(*self.draw(gen, int(batch_size))))
+    def __call__(self, key, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.gather(*self.starts(self.draw(key, int(batch_size))))

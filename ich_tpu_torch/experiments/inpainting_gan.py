@@ -8,7 +8,7 @@ config's generator (``SAGatedGenerator`` with ``net.self_attention``, else
 ``mask`` sections. Writes ``checkpoint.bin`` (resumed from when present),
 ``valid/valid_ep{e}_{i}.png`` every 5 epochs, ``snpatchgan.bin`` and
 ``outputs.json`` under ``<OUTPUT>/<exp_name>``. Validation inpaints the first batch under fixed
-masks drawn from a generator seeded with 1234. Run it as::
+masks drawn from ``PRNGKey(1234)``. Run it as::
 
     python -m ich_tpu_torch.experiments.inpainting_gan CONFIG.json [--device cuda]
 """

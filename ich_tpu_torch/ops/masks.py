@@ -4,12 +4,12 @@
 
 Each mask is split into a *draw* and a *render*:
 
-- :func:`draw_ff_masks` takes a ``torch.Generator`` and draws, for a whole
-  batch at once, the stroke count, each stroke's vertex count, brush width,
+- :func:`draw_ff_masks` takes a jax.random key and draws from it, for a
+  whole batch at once, exactly what the JAX package's ``random_ff_masks``
+  draws from it: the stroke count, each stroke's vertex count, brush width,
   start point and base angle, each segment's angle and length, and the
-  salt-and-pepper discs, with the JAX package's distributions: ``randint``'s
-  exclusive upper bounds, start points ~ N(dim/2, dim/8), base angles
-  uniform in [0, 6.28);
+  salt-and-pepper discs (``randint``'s exclusive upper bounds, start points
+  ~ N(dim/2, dim/8), base angles uniform in [0, 6.28));
 - :func:`render_ff_masks` takes those tensors to the (B, H, W) float32 mask
   on their device: the polyline walk (segment k turned by ``+pi`` when k is
   even; the y step ``len * cos(a)``, the x step ``len * sin(a)``), every
@@ -17,17 +17,21 @@ Each mask is split into a *draw* and a *render*:
   the discs.
 
 Counts are padded to their maxima with validity masks, as in the JAX
-package, so the render has static shapes. The JAX draws come from
-``jax.random`` and cannot be replayed by a torch generator: the tests hand
-the render JAX's draws.
+package, so the render has static shapes.
 
 The ellipses are split the same way: :func:`draw_ellipse_params` draws,
-for a batch, the count ``n`` in ``[lo, hi)`` and ``hi - 1`` slots of
-centres ~ N(dim/2, dim/6), a major axis uniform in its range, a minor axis
-uniform up to ``min(minor_hi, major)``, a rotation and an intensity;
+for a batch, what the JAX package's ``draw_ellipses_batch`` draws from the
+same key: the count ``n`` in ``[lo, hi)`` and ``hi - 1`` slots of centres
+~ N(dim/2, dim/6), a major axis uniform in its range, a minor axis uniform
+up to ``min(minor_hi, major)``, a rotation and an intensity;
 :func:`render_ellipses` draws them in slot order on a zero image, each
 later ellipse overwriting the earlier ones, then adds the optional noise
 inside them.
+
+The draws run through :mod:`ich_tpu_torch.utils.rng` with the keys of
+every mask or image, and of the variables of one shape, batched into one
+call: on the host, then one copy each to ``device``, but for the
+ellipses' noise, a (B, H, W) draw that rng computes on ``device``.
 """
 
 from __future__ import annotations
@@ -37,12 +41,24 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ich_tpu_torch.utils import rng
+
 Draws = Dict[str, torch.Tensor]
 
 
+def _to(draws: Draws, device) -> Draws:
+    return {k: rng.to_device(v, device) for k, v in draws.items()}
+
+
+def _keys(key, batch: Optional[int]) -> torch.Tensor:
+    """``split(key, batch)``, or ``key`` itself as a batch of one for
+    ``batch=None``."""
+    return torch.as_tensor(key)[None] if batch is None else rng.split(key, batch)
+
+
 def draw_ff_masks(
-    gen: torch.Generator,
-    batch: int,
+    key,
+    batch: Optional[int],
     shape: Tuple[int, int],
     n_draw: Tuple[int, int] = (1, 4),
     vertex: Tuple[int, int] = (5, 15),
@@ -51,41 +67,45 @@ def draw_ff_masks(
     length: Tuple[int, int] = (10, 40),
     n_salt_pepper: Tuple[int, int] = (0, 10),
     salt_pepper_radius: Tuple[int, int] = (1, 5),
+    device=None,
 ) -> Draws:
-    """The random parameters of ``batch`` masks of ``shape``, drawn from
-    ``gen`` on its device in a fixed order (the names below, in order).
-    Integer counts are int64, the rest float32; ``D = n_draw[1] - 1``
-    strokes, ``V = vertex[1] - 1`` segments a stroke and ``S =
-    n_salt_pepper[1] - 1`` discs at most (no disc keys when ``S <= 0``)."""
+    """The random parameters of ``batch`` masks of ``shape`` on ``device``
+    (the CPU by default), from the JAX package's key tree: mask i takes
+    ``split(key, batch)[i]`` (``batch=None``: one mask from ``key`` itself,
+    as ``random_ff_mask``), split into ``kd, kv, kb, ks, kw_, kn, ka, kl,
+    ksp``; the discs draw from ``split(ksp, 4)``. Integer counts are int64,
+    the rest float32; ``D = n_draw[1] - 1`` strokes, ``V = vertex[1] - 1``
+    segments a stroke and ``S = n_salt_pepper[1] - 1`` discs at most (no
+    disc keys when ``S <= 0``)."""
     h, w = shape
-    dev = gen.device
     d, v = n_draw[1] - 1, vertex[1] - 1
     s = max(n_salt_pepper[1] - 1, 0)
-
-    def randint(lo, hi, size):
-        return torch.randint(int(lo), int(hi), size, generator=gen, device=dev)
-
-    def uniform(lo, hi, size):
-        return torch.rand(size, generator=gen, device=dev) * (hi - lo) + lo
-
-    def normal(size):
-        return torch.randn(size, generator=gen, device=dev)
-
-    out = {"n_strokes": randint(n_draw[0], n_draw[1], (batch,)),
-           "n_vert": randint(vertex[0], vertex[1], (batch, d)),
-           "width": randint(brush_width[0], brush_width[1], (batch, d))}
-    out["sx"] = normal((batch, d)) * (w / 8) + w / 2
-    out["sy"] = normal((batch, d)) * (h / 8) + h / 2
-    out["beta"] = uniform(0.0, 6.28, (batch, d))
-    out["angs"] = uniform(float(angle[0]), float(angle[1]), (batch, d, v))
-    out["lens"] = randint(length[0], length[1], (batch, d, v)).to(torch.float32)
+    kd, kv, kb, ks, kw_, kn, ka, kl, ksp = rng.split(_keys(key, batch), 9).unbind(-2)
+    # draws of one shape in one pass each, their keys stacked and their
+    # bounds broadcast: each is the draw its own key gives
+    out = {"n_strokes": rng.randint(kd, (), n_draw[0], n_draw[1])}
+    out["n_vert"], out["width"] = rng.randint(
+        torch.stack([kv, kb]), (d,), _bounds(vertex[0], brush_width[0]),
+        _bounds(vertex[1], brush_width[1])).unbind(0)
+    sx, sy = rng.normal(torch.stack([ks, kw_]), (d,)).unbind(0)
+    out["sx"] = sx * (w / 8) + w / 2
+    out["sy"] = sy * (h / 8) + h / 2
+    out["beta"] = rng.uniform(kn, (d,), 0.0, 6.28)
+    out["angs"] = rng.uniform(ka, (d, v), angle[0], angle[1])
+    out["lens"] = rng.randint(kl, (d, v), length[0], length[1]).to(torch.float32)
     if s > 0:
-        out["n_sp"] = randint(n_salt_pepper[0], n_salt_pepper[1], (batch,))
-        out["cy"] = randint(0, h, (batch, s)).to(torch.float32)
-        out["cx"] = randint(0, w, (batch, s)).to(torch.float32)
-        out["r"] = randint(salt_pepper_radius[0], salt_pepper_radius[1],
-                           (batch, s)).to(torch.float32)
-    return out
+        k1, k2, k3, k4 = rng.split(ksp, 4).unbind(-2)
+        out["n_sp"] = rng.randint(k1, (), n_salt_pepper[0], n_salt_pepper[1])
+        discs = rng.randint(torch.stack([k2, k3, k4]), (s,), _bounds(0, 0, salt_pepper_radius[0]),
+                            _bounds(h, w, salt_pepper_radius[1])).to(torch.float32)
+        out["cy"], out["cx"], out["r"] = discs.unbind(0)
+    return _to(out, device)
+
+
+def _bounds(*values, dtype=torch.int64) -> torch.Tensor:
+    """Per-variable bounds (V, 1, 1) of a draw whose V keys are stacked
+    first over (B, n) values."""
+    return torch.tensor(values, dtype=dtype).reshape(-1, 1, 1)
 
 
 def render_ff_masks(draws: Draws, shape: Tuple[int, int]) -> torch.Tensor:
@@ -128,21 +148,22 @@ def render_ff_masks(draws: Draws, shape: Tuple[int, int]) -> torch.Tensor:
     return mask.to(torch.float32)
 
 
-def random_ff_masks(gen: torch.Generator, batch: int, shape: Tuple[int, int],
+def random_ff_masks(key, batch: int, shape: Tuple[int, int], device=None,
                     **kw) -> torch.Tensor:
-    """A batch of free-form masks (B, H, W) on ``gen``'s device: draw, then
+    """A batch of free-form masks (B, H, W) on ``device``: draw, then
     render."""
-    return render_ff_masks(draw_ff_masks(gen, batch, shape, **kw), shape)
+    return render_ff_masks(draw_ff_masks(key, batch, shape, device=device, **kw), shape)
 
 
-def random_ff_mask(gen: torch.Generator, shape: Tuple[int, int], **kw) -> torch.Tensor:
-    """One free-form mask (H, W)."""
-    return random_ff_masks(gen, 1, shape, **kw)[0]
+def random_ff_mask(key, shape: Tuple[int, int], device=None, **kw) -> torch.Tensor:
+    """One free-form mask (H, W), drawn from ``key`` itself as the JAX
+    package's ``random_ff_mask(key)`` draws it."""
+    return render_ff_masks(draw_ff_masks(key, None, shape, device=device, **kw), shape)[0]
 
 
 def draw_ellipse_params(
-    gen: torch.Generator,
-    batch: int,
+    key,
+    batch: Optional[int],
     shape: Tuple[int, int],
     n_ellipse: Tuple[int, int] = (1, 10),
     major_axis: Tuple[int, int] = (1, 25),
@@ -150,34 +171,34 @@ def draw_ellipse_params(
     rotation: Tuple[float, float] = (0.0, 2 * math.pi),
     intensity: Tuple[float, float] = (0.1, 1.0),
     noise: Optional[float] = None,
+    device=None,
 ) -> Draws:
     """The random parameters of ``batch`` ellipse images of ``shape``
-    (reference ``draw_ellipses``, ``datasets.py:685-719``), drawn from
-    ``gen`` on its device in the order of the keys below: ``n`` (B,) int64,
-    then (B, M) float32 with ``M = n_ellipse[1] - 1``: ``cy``, ``cx``,
-    ``major`` (the column radius), ``minor`` (the row radius, never above
-    the major), ``theta``, ``value``; with ``noise``, ``noise`` (B, H, W),
+    (reference ``draw_ellipses``, ``datasets.py:685-719``) on ``device``,
+    from the JAX package's key tree: image i takes ``split(key, batch)[i]``
+    (``batch=None``: one image from ``key`` itself, as ``draw_ellipses``),
+    split into ``kn, kc, kaxis, krot, kint, knoise``. ``n`` (B,) int64, then
+    (B, M) float32 with ``M = n_ellipse[1] - 1``: ``cy`` (from ``kc``),
+    ``cx`` (``fold_in(kc, 1)``), ``major`` (the column radius, ``kaxis``),
+    ``minor`` (the row radius, never above the major, ``fold_in(kaxis,
+    1)``), ``theta``, ``value``; with ``noise``, ``noise`` (B, H, W),
     already scaled."""
     h, w = shape
-    dev = gen.device
     m = n_ellipse[1] - 1
-
-    def uniform(lo, hi, size):
-        # jax.random.uniform: lo + (hi - lo) u, never below lo
-        return torch.maximum(torch.rand(size, generator=gen, device=dev) * (hi - lo) + lo,
-                             torch.as_tensor(lo, dtype=torch.float32, device=dev))
-
-    out = {"n": torch.randint(int(n_ellipse[0]), int(n_ellipse[1]), (batch,), generator=gen,
-                              device=dev)}
-    out["cy"] = torch.randn((batch, m), generator=gen, device=dev) * (h / 6.0) + h / 2.0
-    out["cx"] = torch.randn((batch, m), generator=gen, device=dev) * (w / 6.0) + w / 2.0
-    out["major"] = uniform(float(major_axis[0]), float(major_axis[1]), (batch, m))
-    out["minor"] = uniform(float(minor_axis[0]),
-                           torch.clamp(out["major"], max=float(minor_axis[1])), (batch, m))
-    out["theta"] = uniform(float(rotation[0]), float(rotation[1]), (batch, m))
-    out["value"] = uniform(float(intensity[0]), float(intensity[1]), (batch, m))
+    kn, kc, kaxis, krot, kint, knoise = rng.split(_keys(key, batch), 6).unbind(-2)
+    out = {"n": rng.randint(kn, (), n_ellipse[0], n_ellipse[1])}
+    cy, cx = rng.normal(torch.stack([kc, rng.fold_in(kc, 1)]), (m,)).unbind(0)
+    out["cy"] = cy * (h / 6.0) + h / 2.0
+    out["cx"] = cx * (w / 6.0) + w / 2.0
+    out["major"] = rng.uniform(kaxis, (m,), float(major_axis[0]), float(major_axis[1]))
+    out["minor"] = rng.uniform(rng.fold_in(kaxis, 1), (m,), float(minor_axis[0]),
+                               torch.clamp(out["major"], max=float(minor_axis[1])))
+    out["theta"], out["value"] = rng.uniform(
+        torch.stack([krot, kint]), (m,), _bounds(rotation[0], intensity[0], dtype=torch.float32),
+        _bounds(rotation[1], intensity[1], dtype=torch.float32)).unbind(0)
+    out = _to(out, device)
     if noise is not None:
-        out["noise"] = torch.randn((batch, h, w), generator=gen, device=dev) * noise
+        out["noise"] = rng.normal(knoise, (h, w), device) * noise
     return out
 
 
@@ -217,13 +238,14 @@ def render_ellipses(draws: Draws, shape: Tuple[int, int]) -> torch.Tensor:
     return out
 
 
-def draw_ellipses_batch(gen: torch.Generator, batch: int, shape: Tuple[int, int],
+def draw_ellipses_batch(key, batch: int, shape: Tuple[int, int], device=None,
                         **kw) -> torch.Tensor:
-    """A batch of ellipse images (B, H, W) on ``gen``'s device: draw, then
+    """A batch of ellipse images (B, H, W) on ``device``: draw, then
     render."""
-    return render_ellipses(draw_ellipse_params(gen, batch, shape, **kw), shape)
+    return render_ellipses(draw_ellipse_params(key, batch, shape, device=device, **kw), shape)
 
 
-def draw_ellipses(gen: torch.Generator, shape: Tuple[int, int], **kw) -> torch.Tensor:
-    """One ellipse image (H, W)."""
-    return draw_ellipses_batch(gen, 1, shape, **kw)[0]
+def draw_ellipses(key, shape: Tuple[int, int], device=None, **kw) -> torch.Tensor:
+    """One ellipse image (H, W), drawn from ``key`` itself as the JAX
+    package's ``draw_ellipses(key)`` draws it."""
+    return render_ellipses(draw_ellipse_params(key, None, shape, device=device, **kw), shape)[0]

@@ -46,7 +46,7 @@ def _ensure_batched(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
 def _on(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A host draw on ``like``'s device (one copy)."""
-    return x.to(like.device, non_blocking=True)
+    return rng.to_device(x, like.device)
 
 
 def _matrix(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

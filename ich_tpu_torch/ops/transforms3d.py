@@ -1,11 +1,12 @@
 """On-device, batched augmentation of 3D patches (counterpart of
 :mod:`ich_tpu.ops.transforms3d`).
 
-Every transform takes a (B, D, H, W[, C]) batch and one ``torch.Generator``
-on the batch's device, and draws from it in a fixed order; ``Compose3D``
-hands the same generator to each transform in turn. Each random transform
-splits into a draw (``affine_params``, ``flip_flags``) and an apply on given
-values, so that the draws can be injected.
+Every transform takes a jax.random key (:mod:`ich_tpu_torch.utils.rng`)
+and a (B, D, H, W[, C]) batch, and draws from the key exactly the
+parameters that the JAX package's transform draws from it, on the host;
+``Compose3D`` hands transform i ``split(key, len(transforms))[i]``. Each
+random transform splits into a draw (``affine_params``, ``flip_flags``) and
+an apply on given values, so that the draws can be injected.
 
 - :class:`Flip3D`: random flips along chosen spatial axes;
 - :class:`RotateInPlane`: one random (H, W) rotation per sample, shared
@@ -13,12 +14,7 @@ values, so that the draws can be injected.
 - :class:`AffineAugment3D`: that rotation composed with random H and W
   flips into one warp;
 - photometric jitter is the rank-agnostic
-  :class:`ich_tpu_torch.ops.transforms.AdjustBrightness` / ``AdjustContrast``,
-  whose factors ``Compose3D`` draws from its generator.
-
-The 2D transforms draw from jax.random's keys (:mod:`ich_tpu_torch.utils.
-rng`); these still draw from a torch generator, the same kinds of draws as
-the JAX package's but another stream.
+  :class:`ich_tpu_torch.ops.transforms.AdjustBrightness` / ``AdjustContrast``.
 
 The in-plane warp folds depth into the batch and runs the exact gather of
 :func:`ich_tpu_torch.ops.warp.affine_warp`, the route the JAX package takes
@@ -33,20 +29,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ich_tpu_torch.ops.transforms import AdjustBrightness, _matrix
+from ich_tpu_torch.ops.transforms import AdjustBrightness, _matrix, _on
 from ich_tpu_torch.ops.warp import affine_warp, compose_affine
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRANSFORMS
-
-
-def _uniform(gen: torch.Generator, batch, low: float, high: float) -> torch.Tensor:
-    """Draws of shape ``batch`` uniform on [low, high)."""
-    u = torch.rand(batch, generator=gen, device=gen.device, dtype=torch.float32)
-    return low + (high - low) * u
-
-
-def _bernoulli(gen: torch.Generator, batch: int, p: float) -> torch.Tensor:
-    """(B,) bool, True with probability ``p``, as ``jax.random.bernoulli``."""
-    return torch.rand(batch, generator=gen, device=gen.device) < p
 
 
 class Flip3D:
@@ -57,10 +43,11 @@ class Flip3D:
         self.p = p
         self.axes = tuple(axes)
 
-    def flip_flags(self, gen: torch.Generator, batch: int) -> torch.Tensor:
-        """(len(axes), B) bool: whether each sample flips along each axis,
-        drawn axis by axis."""
-        return torch.stack([_bernoulli(gen, batch, self.p) for _ in self.axes])
+    def flip_flags(self, key, batch: int) -> torch.Tensor:
+        """(len(axes), B) bool on the host: whether each sample flips along
+        axis i, ``bernoulli(fold_in(key, i), p, (B,))``."""
+        return torch.stack([rng.bernoulli(rng.fold_in(key, i), self.p, (batch,))
+                            for i in range(len(self.axes))])
 
     def apply_flags(self, x: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
         for ax, flip in zip(self.axes, flags):
@@ -68,8 +55,8 @@ class Flip3D:
             x = torch.where(f, torch.flip(x, dims=(ax,)), x)
         return x
 
-    def __call__(self, gen, image, mask=None):
-        flags = self.flip_flags(gen, image.shape[0])
+    def __call__(self, key, image, mask=None):
+        flags = _on(self.flip_flags(key, image.shape[0]), image)
         out = self.apply_flags(image, flags)
         return (out, self.apply_flags(mask, flags)) if mask is not None else out
 
@@ -77,12 +64,12 @@ class Flip3D:
         return f"Flip3D(p={self.p}, axes={list(self.axes)})"
 
 
-def _rotation_affine(gen: torch.Generator, batch: int, low: float, high: float):
-    """(m, o): a rotation by an angle uniform on [low, high) degrees per
-    sample, no offset."""
-    th = _uniform(gen, batch, low, high) * (math.pi / 180.0)
+def _rotation_affine(key, batch: int, low: float, high: float):
+    """(m, o) on the host: a rotation by ``uniform(key, (B,), low, high)``
+    degrees per sample, no offset."""
+    th = rng.uniform(key, (batch,), low, high) * (math.pi / 180.0)
     c, s = torch.cos(th), torch.sin(th)
-    return _matrix(c, s, -s, c), torch.zeros((batch, 2), device=gen.device)
+    return _matrix(c, s, -s, c), torch.zeros((batch, 2))
 
 
 def _warp_inplane(x: torch.Tensor, m: torch.Tensor, o: torch.Tensor, order: int) -> torch.Tensor:
@@ -97,14 +84,14 @@ def _warp_inplane(x: torch.Tensor, m: torch.Tensor, o: torch.Tensor, order: int)
 
 
 class _InPlaneAffine:
-    """Base of the in-plane warps: ``affine_params(gen, batch) -> (m, o)``,
-    then the image warped at order 1 and the mask at order 0."""
+    """Base of the in-plane warps: ``affine_params(key, batch) -> (m, o)``
+    on the host, then the image warped at order 1 and the mask at order 0."""
 
-    def affine_params(self, gen: torch.Generator, batch: int):
+    def affine_params(self, key, batch: int):
         raise NotImplementedError
 
-    def __call__(self, gen, image, mask=None):
-        m, o = self.affine_params(gen, image.shape[0])
+    def __call__(self, key, image, mask=None):
+        m, o = (_on(t, image) for t in self.affine_params(key, image.shape[0]))
         out = _warp_inplane(image, m, o, order=1)
         return (out, _warp_inplane(mask, m, o, order=0)) if mask is not None else out
 
@@ -116,8 +103,8 @@ class RotateInPlane(_InPlaneAffine):
     def __init__(self, low: float = -10.0, high: float = 10.0):
         self.low, self.high = low, high
 
-    def affine_params(self, gen, batch):
-        return _rotation_affine(gen, batch, self.low, self.high)
+    def affine_params(self, key, batch):
+        return _rotation_affine(key, batch, self.low, self.high)
 
     def __str__(self):
         return f"RotateInPlane(low={self.low}, high={self.high})"
@@ -125,8 +112,9 @@ class RotateInPlane(_InPlaneAffine):
 
 class AffineAugment3D(_InPlaneAffine):
     """In-plane rotation and random H / W flips composed into one warp per
-    batch (image order 1, mask order 0). Draws: the angles, then the H
-    flips, then the W flips (each only if enabled)."""
+    batch (image order 1, mask order 0). Draws from ``kr, kh, kw =
+    split(key, 3)``: the angles from ``kr``, the H flips from ``kh`` and the
+    W flips from ``kw`` (each only if enabled)."""
 
     def __init__(self, rotate: Tuple[float, float] = (-10.0, 10.0),
                  p_flip: float = 0.5, flip_h: bool = True, flip_w: bool = True):
@@ -134,18 +122,18 @@ class AffineAugment3D(_InPlaneAffine):
         self.p_flip = p_flip
         self.flip_h, self.flip_w = flip_h, flip_w
 
-    def affine_params(self, gen, batch):
-        m, o = _rotation_affine(gen, batch, *self.rotate)
-        one = torch.ones(batch, device=gen.device)
-        zero = torch.zeros(batch, device=gen.device)
+    def affine_params(self, key, batch):
+        kr, kh, kw = rng.split(key, 3)
+        m, o = _rotation_affine(kr, batch, *self.rotate)
+        one, zero = torch.ones(batch), torch.zeros(batch)
 
-        def sign(enabled: bool) -> torch.Tensor:
+        def sign(k, enabled: bool) -> torch.Tensor:
             if not enabled:
                 return one
-            return torch.where(_bernoulli(gen, batch, self.p_flip), -1.0, 1.0)
+            return torch.where(rng.bernoulli(k, self.p_flip, (batch,)), -1.0, 1.0)
 
-        sy = sign(self.flip_h)
-        sx = sign(self.flip_w)
+        sy = sign(kh, self.flip_h)
+        sx = sign(kw, self.flip_w)
         return compose_affine(m, o, _matrix(sy, zero, zero, sx), torch.zeros_like(o))
 
     def __str__(self):
@@ -155,22 +143,18 @@ class AffineAugment3D(_InPlaneAffine):
 
 class Compose3D:
     """Sequential 3D pipeline; the 2D photometric transforms compose too.
-    Each transform draws from the one generator in turn: a photometric one
-    its (apply, factor) per sample, in this order."""
+    Transform i draws from ``split(key, len(transforms))[i]``, as in the JAX
+    package."""
 
     def __init__(self, *transforms):
         self.transforms = tuple(transforms)
 
-    def __call__(self, gen, image, mask=None):
-        for t in self.transforms:
-            if isinstance(t, AdjustBrightness):
-                b = image.shape[0]
-                apply = torch.rand(b, generator=gen, device=gen.device) < t.p
-                image = t.apply_factors(image, apply, _uniform(gen, b, t.low, t.high))
-            elif mask is not None:
-                image, mask = t(gen, image, mask)
+    def __call__(self, key, image, mask=None):
+        for k, t in zip(rng.split(key, max(1, len(self.transforms))), self.transforms):
+            if mask is not None:
+                image, mask = t(k, image, mask)
             else:
-                image = t(gen, image)
+                image = t(k, image)
         return (image, mask) if mask is not None else image
 
     def __str__(self):

@@ -1,10 +1,10 @@
 """FCDD anomaly-localization trainer (counterpart of
 :mod:`ich_tpu.train.fcdd_trainer`; reference ``FCDD.py``).
 
-Each step draws from a torch generator seeded from the step's key, in
-this order: a batch of
-ellipse images (:func:`ich_tpu_torch.ops.masks.draw_ellipses_batch`), then
-one uniform per slice. A normal slice (label 0) whose uniform is below
+Each step draws from ``ka, kp = split(key)`` as the JAX step does: a batch
+of ellipse images from ``ka`` (:func:`ich_tpu_torch.ops.masks.
+draw_ellipses_batch`), and ``uniform(kp, (B,))``. A normal slice (label 0)
+whose uniform is below
 ``anomaly_proba`` takes the ellipses' values wherever they are above 0 and
 the label 1; then the HSC loss of the net's score map, backward and Adam.
 Epochs drop the last partial batch (:class:`ich_tpu_torch.train.ssl.
@@ -41,6 +41,7 @@ from ich_tpu_torch.train.ae_trainer import _host
 from ich_tpu_torch.train.segmentation2d import eval_mode
 from ich_tpu_torch.train.ssl import _nhwc, _SSLBase
 from ich_tpu_torch.train.state import TrainState
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 
 logger = logging.getLogger(__name__)
@@ -80,25 +81,33 @@ class FCDD(_SSLBase):
             yield images, self._to_device(labels[idx])
 
     def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
-        return self._step(state, *batch, self._generator(key))
+        return self._step(state, *batch, key)
+
+    def draw_anomalies(self, key: torch.Tensor, batch: int, shape: Tuple[int, int],
+                       device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A step's draws from ``ka, kp = split(key)``, as the JAX step
+        draws them: (B, H, W) ellipse images on ``device`` from ``ka`` and
+        the uniforms ``uniform(kp, (B,))`` on the host that decide each
+        normal slice's corruption."""
+        ka, kp = rng.split(key)
+        return (draw_ellipses_batch(ka, batch, shape, device, **self.drawing_params),
+                rng.uniform(kp, (batch,)))
 
     def _step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-              gen: Optional[torch.Generator], ellipses: Optional[torch.Tensor] = None,
+              key: Optional[torch.Tensor], ellipses: Optional[torch.Tensor] = None,
               u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on (B, H, W[, 1]) images with labels (B,); the ellipse
-        images (B, H, W) and the uniforms (B,) are drawn from ``gen`` unless
-        given."""
+        images (B, H, W) and the uniforms (B,) are drawn from ``key``
+        (:meth:`draw_anomalies`) unless both are given."""
         images = _nhwc(images)
         labels = labels.to(images.device)
         b, h, w = images.shape[:3]
         if self.artificial_anomaly:
             with torch.profiler.record_function("anomalies"):
                 if ellipses is None:
-                    ellipses = draw_ellipses_batch(gen, b, (h, w), **self.drawing_params)
-                if u is None:
-                    u = torch.rand((b,), generator=gen, device=gen.device)
+                    ellipses, u = self.draw_anomalies(key, b, (h, w), images.device)
                 ell = ellipses.to(images.device, torch.float32)[..., None]
-                corrupt = (u.to(images.device) < self.anomaly_proba) & (labels == 0)
+                corrupt = (rng.to_device(u, images.device) < self.anomaly_proba) & (labels == 0)
                 images = torch.where(corrupt[:, None, None, None] & (ell > 0), ell, images)
                 labels = torch.where(corrupt, torch.ones_like(labels), labels)
         with torch.profiler.record_function("net"):

@@ -2,9 +2,10 @@
 
 Each step (reference ``SNPatchGAN.py``; ``ich_tpu/train/gan.py:158-209``):
 
-1. the free-form masks, drawn on the device from the step's generator
-   (a torch generator seeded from the step's key) before anything else, or
-   given;
+1. the free-form masks, drawn from ``km, kg = split(key)``'s ``km`` as
+   the JAX step draws them (:func:`ich_tpu_torch.ops.masks.
+   random_ff_masks`: the draws on the host, the render on the device)
+   before anything else, or given;
 2. the D step: the generator in train mode without gradient, its BatchNorm
    update discarded (the G step starts again from the same statistics);
    the composite ``im * (1 - m) + fine * m``; the discriminator in train
@@ -25,9 +26,8 @@ come from one ``np.random.default_rng(seed + e0)``, created at the first
 epoch ``e0`` that runs (0, or the first after a resume), as the JAX package
 plans them. ``inpaint`` runs the generator in eval mode (numpy in, numpy
 out), the entry of the inpainting anomaly detector. Validation masks are
-drawn from a torch generator seeded with 1234 (the JAX package's
-``PRNGKey(1234)`` cannot be replayed) and the PNGs are written by
-:mod:`ich_tpu_torch.data.png`.
+drawn from ``PRNGKey(1234)``, the JAX package's masks, and the PNGs are
+written by :mod:`ich_tpu_torch.data.png`.
 """
 
 from __future__ import annotations
@@ -183,28 +183,25 @@ class SNPatchGAN:
             self._state_steps = steps_per_epoch
         return self.state
 
-    def _generator(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return gen
-
     # -- the step -----------------------------------------------------------------
 
     def _train_step(self, state: GANState, images: torch.Tensor, key: torch.Tensor):
-        return self._step(state, images, rng.torch_generator(key, self.device))
+        return self._step(state, images, key)
 
-    def _step(self, state: GANState, images: torch.Tensor, gen: Optional[torch.Generator],
+    def _step(self, state: GANState, images: torch.Tensor, key: Optional[torch.Tensor],
               masks: Optional[torch.Tensor] = None):
         """One D step and one G step on (B, H, W[, 1]) images; the masks
-        (B, H, W[, 1]) are drawn from ``gen`` unless given. Returns the G
-        loss, the D loss and the L1 term as 0-d tensors."""
+        (B, H, W[, 1]) are drawn from the first half of ``split(key)``
+        unless given. Returns the G loss, the D loss and the L1 term as 0-d
+        tensors."""
         if images.dim() == 3:
             images = images[..., None]
         b, h, w = images.shape[:3]
         G, D = state.generator, state.discriminator
         with torch.profiler.record_function("masks"):
             if masks is None:
-                masks = random_ff_masks(gen, b, (h, w), **self.mask_kwargs)
+                km, _ = rng.split(key)
+                masks = random_ff_masks(km, b, (h, w), images.device, **self.mask_kwargs)
             masks = masks.to(images.device, torch.float32)
             if masks.dim() == 3:
                 masks = masks[..., None]
@@ -308,15 +305,15 @@ class SNPatchGAN:
 
     def validate(self, dataset, save_path: Optional[str] = None, epoch: int = 0) -> float:
         """Inpaint the first ``batch_size`` images (the dataset's masks if
-        it has them, else fixed masks from a generator seeded with 1234),
-        log the masked L1 and, with ``save_path``, write
+        it has them, else fixed masks from ``PRNGKey(1234)``), log the
+        masked L1 and, with ``save_path``, write
         ``valid_ep{epoch}_{i}.png`` (image | mask | inpainted) for up to 8."""
         images = torch.as_tensor(dataset.images[: self.batch_size]).cpu().numpy()
         if getattr(dataset, "masks", None) is not None:
             masks = torch.as_tensor(dataset.masks[: self.batch_size]).cpu().numpy()
         else:
-            gen = self._generator(VALID_MASK_SEED)
-            masks = random_ff_masks(gen, len(images), images.shape[1:3],
+            masks = random_ff_masks(rng.prng_key(VALID_MASK_SEED), len(images),
+                                    images.shape[1:3], self.device,
                                     **self.mask_kwargs).cpu().numpy()
         out = self.inpaint(images, masks)
         l1 = float(np.abs((out[..., 0] - images) * masks).sum() / max(masks.sum(), 1))

@@ -21,9 +21,10 @@ masks (B, H, W, 1)) -> composite`` takes and returns numpy arrays (or
 returns a tensor), as ``SNPatchGAN.inpaint`` does: the slice makes one host
 round trip per grid batch and per anomaly cell. The cell order of every
 pass is shuffled by ONE ``np.random.default_rng(seed)`` per ``detect``.
-W1's null sample is drawn from a torch generator seeded per pass (the JAX
-package's ``PRNGKey(seed)`` folded with the pass cannot be replayed; the
-tests inject JAX's).
+W1's null sample is the JAX package's: ``normal(key, (k, H, W))`` times
+sigma0, ``key`` being ``PRNGKey(seed)`` itself for the first detection and
+``fold_in(PRNGKey(seed), i + 1)`` for the i-th cleanup, drawn on the
+detector's device (:mod:`ich_tpu_torch.utils.rng`).
 """
 
 from __future__ import annotations
@@ -159,19 +160,19 @@ class InpaintAnomalyDetector:
         s = torch.sort(masked, dim=0).values[:k]
         return torch.mean(torch.abs(s - p0_sorted), dim=0)
 
-    def _null_normals(self, call: int, shape: Tuple[int, ...]) -> torch.Tensor:
-        """Standard normals for W1's null sample of pass ``call`` (0 the
-        first detection, i + 1 the i-th cleanup)."""
-        gen = rng.torch_generator(rng.fold_in(rng.prng_key(self.seed), call), self.device)
-        return torch.randn(shape, generator=gen, device=self.device)
+    def _null_normals(self, key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Standard normals for W1's null sample, ``normal(key, shape)`` on
+        the detector's device."""
+        return rng.normal(key, shape, self.device)
 
-    def _distance_map(self, image: torch.Tensor, grids: torch.Tensor, call: int) -> torch.Tensor:
+    def _distance_map(self, image: torch.Tensor, grids: torch.Tensor, key: torch.Tensor
+                      ) -> torch.Tensor:
         mean, std, err, g = self._error_moments(image, grids)
         sigma0 = torch.clamp(torch.quantile(std.reshape(-1), 0.25), min=1e-6)
         std = torch.clamp(std, min=1e-6)
         if self.use_wasserstein:
             k = int(grids.sum(dim=0).min())  # samples per pixel
-            p0 = self._null_normals(call, (k,) + tuple(image.shape)) * sigma0
+            p0 = self._null_normals(key, (k,) + tuple(image.shape)) * sigma0
             return self.pixelwise_wasserstein_1(torch.sort(p0, dim=0).values, err, g, k)
         p0 = (torch.zeros_like(mean), torch.ones_like(std) * sigma0)
         return self.kl_divergence_normal(p0, (mean, std))
@@ -219,8 +220,9 @@ class InpaintAnomalyDetector:
         # one generator threaded through every pass: the cell order changes
         # from pass to pass, as the reference's shuffled DataLoader's does
         shuffle_rng = np.random.default_rng(self.seed)
+        key = rng.prng_key(self.seed)
 
-        d0 = self._distance_map(self._dev(image), grids, 0)
+        d0 = self._distance_map(self._dev(image), grids, key)
         ma = self._threshold(d0, self.alpha01, self.alpha02)
         if verbose:
             logger.info("Anomalous pixel detected : %d", int(ma.sum()))
@@ -232,7 +234,7 @@ class InpaintAnomalyDetector:
 
         ma_prev = ma
         for i in range(self.n_iter):
-            di = self._distance_map(self._dev(corrected), grids, i + 1)
+            di = self._distance_map(self._dev(corrected), grids, rng.fold_in(key, i + 1))
             ma_normal = self._threshold(di, self.alpha1, self.alpha2)
             ma = ma & ~ma_normal
             ma = _numpy(morph.opening(

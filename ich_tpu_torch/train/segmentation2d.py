@@ -242,17 +242,13 @@ class UNet2D:
             for idx in plan:
                 yield self._to_device(images[idx]), self._to_device(masks[idx])
 
-    def _generator(self, key: torch.Tensor) -> torch.Generator:
-        """A torch generator on the device seeded from ``key``, for the
-        trainers whose draws are still torch's."""
-        return rng.torch_generator(key, self.device)
-
     def _dropout_generator(self, key: torch.Tensor) -> torch.Generator:
-        """Dropout's generator from its key; under a mesh with the rank
-        folded in, so that each rank's slice draws its own masks."""
+        """Dropout's generator on the device, seeded from its key
+        (:func:`ich_tpu_torch.utils.rng.torch_generator`); under a mesh with
+        the rank folded in, so that each rank's slice draws its own masks."""
         if self.mesh is not None:
             key = rng.fold_in(key, self.mesh.rank)
-        return self._generator(key)
+        return rng.torch_generator(key, self.device)
 
     def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
         return self._step(state, *batch, key)

@@ -5,10 +5,14 @@
 probability ``pos_frac`` centred on a positive voxel: from a
 device-resident stack (:class:`ich_tpu_torch.data.patch_sampler.
 DevicePatchSampler`), or on the host (:func:`sample_patches`) when the
-stack would not fit its budget or a mask is not binary. Each step draws its
-patches, its augmentation and its dropout from one generator seeded per
-step, then runs :class:`UNet2D`'s step (forward, loss, backward, Adam) on
-(B, D, H, W) patches; the epoch hook validates with ``evaluate``.
+stack would not fit its budget or a mask is not binary. Each step draws
+from its jax.random key as the JAX trainer's ``run_step`` does: with the
+device sampler ``ks, key = split(key)`` and the patches from ``ks``, the
+host sampler from its numpy generator and the key left whole; then
+:class:`UNet2D`'s step (``aug_key, drop_key = split(key)``: the
+augmentation from the first, dropout from the second; forward, loss,
+backward, Adam) on (B, D, H, W) patches; the epoch hook validates with
+``evaluate``.
 
 A (D, H, W) HU volume is copied to the device, windowed there, segmented
 by Gaussian-blended sliding-window inference (:mod:`ich_tpu_torch.ops.
@@ -18,13 +22,13 @@ mask, or for ``evaluate`` four confusion counts, come back.
 before they fetch the oldest result.
 
 With ``mesh=`` the trainer is data-parallel as :class:`UNet2D` is: every
-rank draws the global batch's patches from the same seeded draws (both
-samplers), augments them whole and keeps its slice; the GroupNorm net
-needs no statistics sync. With more than one rank, ``segment_volumes`` of
-same-shaped volumes runs one volume per rank through
-:func:`ich_tpu_torch.parallel.volume_parallel_map`, each through the
-serial path's window, sliding window and threshold, and gathers the uint8
-masks.
+rank draws the global batch's patches from the same draws (both samplers),
+augments them whole and keeps its slice, and draws its dropout with its
+rank folded into the key; the GroupNorm net needs no statistics sync.
+With more than one rank, ``segment_volumes`` of same-shaped volumes runs
+one volume per rank through :func:`ich_tpu_torch.parallel.
+volume_parallel_map`, each through the serial path's window, sliding
+window and threshold, and gathers the uint8 masks.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ich_tpu_torch.ops.metrics import (
 from ich_tpu_torch.ops.sliding_window import sliding_window_inference
 from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.train.segmentation2d import UNet2D, _set_dropout_generator, eval_mode, write_csv
+from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 from ich_tpu_torch.utils.pipeline import fetch_pipelined
 
@@ -178,30 +183,18 @@ class UNet3D(UNet2D):
                     self.device)
         return sampler
 
-    def _sample_step(self, state, draw: Callable[[torch.Generator], Tuple[torch.Tensor, ...]],
-                     key: torch.Tensor) -> torch.Tensor:
-        """One training step: a torch generator seeded from the step's key
-        first draws the (images, masks) patches through ``draw``, then the
-        augmentation and dropout of :meth:`_step`."""
-        gen = self._generator(key)
+    def _sample_step(self, state, draw: Callable[..., Tuple[torch.Tensor, torch.Tensor]],
+                     key: torch.Tensor, device_sampler: bool = True) -> torch.Tensor:
+        """One training step from the step's key: with the device sampler
+        the (images, masks) patches come from ``draw(ks)``, ``ks, key =
+        split(key)``; with the host sampler from ``draw(None)`` and the key
+        stays whole. Then :meth:`UNet2D._step` from ``key``."""
+        ks = None
+        if device_sampler:
+            ks, key = rng.split(key)
         with torch.profiler.record_function("sample"):
-            images, masks = draw(gen)
-        return self._step(state, images, masks, gen)
-
-    def _step(self, state, images: torch.Tensor, masks: torch.Tensor,
-              gen: torch.Generator) -> torch.Tensor:
-        """One step whose augmentation and dropout draw from the torch
-        generator ``gen`` (under a mesh dropout from a generator seeded by
-        ``gen`` and the rank), then :meth:`UNet2D._update`."""
-        augment = None
-        if self.augment_fn is not None:
-            augment = lambda im, mk: self.augment_fn(gen, im, mk)  # noqa: E731
-        dropout = gen
-        if self.mesh is not None:
-            seq = np.random.SeedSequence((gen.initial_seed(), self.mesh.rank))
-            dropout = torch.Generator(device=self.device)
-            dropout.manual_seed(int(seq.generate_state(1, np.uint64)[0] >> 1))
-        return self._update(state, images, masks, augment, dropout)
+            images, masks = draw(ks)
+        return self._step(state, images, masks, key)
 
     def train(
         self,
@@ -222,14 +215,14 @@ class UNet3D(UNet2D):
             self.unet.train()
             return range(self.steps_per_epoch_cfg)
 
-        def draw(gen):
+        def draw(ks):
             if sampler is not None:
-                return sampler(gen, self.batch_size)
+                return sampler(ks, self.batch_size)
             return tuple(self._to_device(a) for a in sample_patches(
                 rng_box["rng"], dataset, self.batch_size, self.patch_size, self.pos_frac))
 
         def run_step(state, _b, key):
-            return self._sample_step(state, draw, key)
+            return self._sample_step(state, draw, key, sampler is not None)
 
         def epoch_hook(state, epoch, mean_losses, epoch_time):
             mean_loss = float(mean_losses) if mean_losses is not None else 0.0

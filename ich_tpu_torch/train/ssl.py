@@ -16,8 +16,9 @@ or ``k1, k2, kd1, kd2, kr = split(key, 5)`` for view 1, view 2, dropout of
 the first forward, of the second, and the region cells. The corruption,
 views and cells equal the JAX package's draws; each dropout key seeds a
 torch generator (dropout's masks are the port's own stream). The AE and
-FCDD trainers built on this base seed one torch generator from the key.
-The two forwards of a
+FCDD trainers built on this base take the step's key too: the AE seeds
+dropout's generator from it, FCDD draws its ellipses and corruption flags
+from ``ka, kp = split(key)``. The two forwards of a
 contrastive step run in train mode one after the other, so the second
 starts from the running statistics the first updated, as in the JAX
 package. Epochs drop the last partial batch (``n // batch_size`` steps);
@@ -187,7 +188,6 @@ class _SSLBase:
 
     # the supervised trainer's helpers, which read only ``self.device`` and
     # ``self.mesh``
-    _generator = UNet2D._generator
     _dropout_generator = UNet2D._dropout_generator
     _to_device = UNet2D._to_device
     _writes = UNet2D._writes
@@ -207,12 +207,12 @@ class _SSLBase:
             else:
                 yield self._to_device(images[idx])
 
-    def _step(self, state: TrainState, images: torch.Tensor, gen: torch.Generator):
+    def _step(self, state: TrainState, images: torch.Tensor, key: torch.Tensor):
         raise NotImplementedError
 
     def _train_step(self, state: TrainState, batch: torch.Tensor, key: torch.Tensor
                     ) -> torch.Tensor:
-        return self._step(state, batch, self._generator(key))
+        return self._step(state, batch, key)
 
     def _update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)

@@ -86,6 +86,16 @@ def threefry2x32(key: torch.Tensor, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]
     return _threefry(k0 & _MASK, k1 & _MASK, x0 & _MASK, x1 & _MASK, _mask)
 
 
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """A host draw on ``device`` (None: the CPU): to a card, one copy from
+    pinned memory, which does not wait for the card's queued work as a copy
+    from pageable memory does."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 def _host_key(key: torch.Tensor) -> np.ndarray:
     return np.asarray(torch.as_tensor(key).cpu().numpy(), dtype=np.int64).astype(np.uint32)
 
@@ -109,7 +119,7 @@ def _counter_words(key: torch.Tensor, shape: Tuple[int, ...], device) -> Tuple:
         k0 = np.broadcast_to(k[..., 0], full).copy()
         k1 = np.broadcast_to(k[..., 1], full).copy()
         b0, b1 = _threefry(k0, k1, hi, lo, lambda v: v)
-        return tuple(torch.from_numpy(b.astype(np.int64).reshape(out_shape)).to(device)
+        return tuple(to_device(torch.from_numpy(b.astype(np.int64).reshape(out_shape)), device)
                      for b in (b0, b1))
     if device.type == "cpu" and not batch:
         # one key's large draw on the host: in cache-sized chunks of words,
@@ -255,7 +265,9 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     x = x.to(torch.float32)
     w = -_log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # sqrt through float64, rounded once to float32 as XLA's is: the card's
+    # float32 sqrt is not always correctly rounded
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).to(torch.float32) - 3.0)
     p = torch.where(lt, _f32(_ERF_INV_LT5[0], x.device), _f32(_ERF_INV_GE5[0], x.device))
     for a, b in zip(_ERF_INV_LT5[1:], _ERF_INV_GE5[1:]):
         p = _fma(p, w, torch.where(lt, _f32(a, x.device), _f32(b, x.device)))
@@ -300,8 +312,9 @@ def randint(key: torch.Tensor, shape: Shape, minval, maxval, device=None) -> tor
     per value from the two halves of ``split(key)``, reduced modulo the span
     in wrapping uint32 arithmetic. int64 values."""
     shape = _shape(shape)
-    k1, k2 = split(key).unbind(-2)
-    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
+    key = torch.as_tensor(key)
+    # both halves' bits in one pass: the split keys batched
+    higher, lower = random_bits(split(key), shape, device).unbind(key.dim() - 1)
     dev = higher.device
     lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
     hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
@@ -362,8 +375,7 @@ def per_sample_keys(key: torch.Tensor, sample_ids) -> torch.Tensor:
 def torch_generator(key: torch.Tensor, device=None) -> torch.Generator:
     """A torch generator on ``device`` seeded with the key's 64 bits: the
     counterpart of ``ich_tpu.utils.rng.dropout_key`` (dropout's stream is
-    the port's own), and the step generator of the trainers whose draws
-    are still torch's."""
+    the port's own)."""
     k0, k1 = (int(v) & _MASK for v in torch.as_tensor(key).reshape(2).tolist())
     gen = torch.Generator(device=torch.device("cpu") if device is None else device)
     gen.manual_seed((k0 << 32) | k1)

@@ -6,7 +6,8 @@ carried by ``interop.from_jax``:
 - ``gdl_loss`` and ``hsc_loss`` (normal and anomaly labels, a score map of
   zeros among them) at rtol 1e-5;
 - the ellipse render from JAX's draws (``jax.random`` replayed key by key):
-  equal; the port's own draws by their ranges;
+  equal; the port's own draws from a key, JAX's (integers equal, floats
+  within 4 ulp), and by their ranges;
 - ``AENet`` with either decoder at 32^2: eval outputs at rtol 1e-5; train
   outputs within 1e-4 of the output's scale (flax's one-pass batch variance
   against torch's two-pass: float32 rounding that the small batch's
@@ -51,6 +52,7 @@ from ich_tpu_torch.ops import masks as M
 from ich_tpu_torch.train.ae_trainer import AE
 from ich_tpu_torch.train.fcdd_trainer import FCDD
 from ich_tpu_torch.utils.config import LOSSES, NETWORKS, TRAINERS
+from ich_tpu_torch.utils.rng import prng_key
 
 torch.set_num_threads(2)
 
@@ -159,16 +161,19 @@ def test_ellipse_render_from_jax_draws_is_equal(case):
 
 
 def test_ellipse_draws_follow_the_jax_distributions():
-    gen = torch.Generator().manual_seed(0)
-    d = M.draw_ellipse_params(gen, 2000, (64, 32), **ELLIPSES)
+    d = M.draw_ellipse_params(prng_key(0), 2000, (64, 32), **ELLIPSES)
     assert d["cy"].shape == (2000, 3) and set(d["n"].unique().tolist()) == {1, 2, 3}
     assert (d["major"] >= 3).all() and (d["major"] < 10).all()
     assert (d["minor"] >= 2).all() and (d["minor"] <= d["major"]).all()
     assert (d["value"] >= 0.6).all() and (d["value"] < 1.0).all()
     assert abs(float(d["cy"].mean()) - 32) < 0.5 and abs(float(d["cx"].std()) - 32 / 6) < 0.2
-    one = M.draw_ellipses(torch.Generator().manual_seed(5), (32, 32), noise=0.05)
-    again = M.draw_ellipses_batch(torch.Generator().manual_seed(5), 1, (32, 32), noise=0.05)
-    assert torch.equal(one, again[0]) and one.shape == (32, 32) and float(one.max()) <= 1.0
+    one = M.draw_ellipses(prng_key(5), (32, 32), noise=0.05)
+    again = M.draw_ellipses(prng_key(5), (32, 32), noise=0.05)
+    batch = M.draw_ellipses_batch(prng_key(5), 2, (32, 32), noise=0.05)
+    assert torch.equal(one, again) and one.shape == (32, 32) and float(one.max()) <= 1.0
+    np.testing.assert_array_equal(one.numpy(), np.asarray(JM.draw_ellipses(
+        jax.random.PRNGKey(5), (32, 32), noise=0.05)))
+    assert batch.shape == (2, 32, 32) and not torch.equal(batch[0], batch[1])
 
 
 # -- networks -----------------------------------------------------------------------
@@ -302,7 +307,7 @@ def test_ae_step_matches_jax(jax_ae, lam):
     pt.lambda_gdl = lam
     state = pt._train_state(2)
     pt.net.train()
-    got = float(pt._step(state, torch.from_numpy(x), None))
+    got = float(pt._step(state, torch.from_numpy(x), prng_key(1)))
     np.testing.assert_allclose(got, float(loss), rtol=1e-4)
     if lam:
         assert got > 10  # the GDL, a sum over each slice's pixels, dominates L1 + L2
@@ -357,6 +362,12 @@ def test_fcdd_step_matches_jax_with_injected_ellipses(jax_fcdd):
     pt.net.train()
     got = float(pt._step(state, torch.from_numpy(x), torch.from_numpy(labels), None,
                          ellipses=M.render_ellipses(draws, (32, 32)), u=u))
+    np.testing.assert_allclose(got, float(loss), rtol=1e-4)
+    # the same step drawing from the key itself
+    pt = _port_fcdd(v0)
+    state = pt._train_state(2)
+    pt.net.train()
+    got = float(pt._step(state, torch.from_numpy(x), torch.from_numpy(labels), prng_key(11)))
     np.testing.assert_allclose(got, float(loss), rtol=1e-4)
     want = FJ.fcdd_state_dict_from_jax(jax.tree_util.tree_map(
         np.array, {"params": new.params, "batch_stats": new.batch_stats}))

@@ -171,16 +171,13 @@ def _volumes_3d(n=3, shape=(20, 40, 36), seed=0):
 
 
 def test_patch_sampler_gather_card_matches_cpu(card):
-    """The device sampler's starts and gathered patches for the same
-    injected draws: equal on the card and on the CPU."""
+    """The device sampler's draws from one key, its starts and gathered
+    patches: equal on the card and on the CPU."""
     ds = _volumes_3d()
-    rng = np.random.default_rng(1)
-    u = torch.from_numpy(rng.uniform(size=16).astype(np.float32))
-    r = torch.from_numpy(rng.integers(0, 1 << 62, size=(16, 5), dtype=np.int64))
     out = {}
     for dev in ("cpu", "cuda"):
         s = DevicePatchSampler(ds, (16, 32, 32), pos_frac=0.5, device=dev)
-        vi, start = s.starts(u.to(dev), r.to(dev))
+        vi, start = s.starts(s.draw(prng.prng_key(1), 16))
         out[dev] = (vi.cpu(), start.cpu()) + tuple(t.cpu() for t in s.gather(vi, start))
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b)
@@ -188,10 +185,10 @@ def test_patch_sampler_gather_card_matches_cpu(card):
 
 @pytest.mark.parametrize("order", [0, 1])
 def test_warp_inplane_card_matches_cpu(card, order):
-    """``AffineAugment3D``'s warp with parameters drawn on the CPU: masks
+    """``AffineAugment3D``'s warp with parameters drawn from a key: masks
     (order 0) equal, images within 1e-5."""
     aug = T3.AffineAugment3D()
-    m, o = aug.affine_params(torch.Generator().manual_seed(0), 4)
+    m, o = aug.affine_params(prng.prng_key(0), 4)
     x = torch.from_numpy(np.random.default_rng(2).uniform(size=(4, 8, 32, 40, 1))
                          .astype(np.float32))
     if order == 0:
@@ -491,7 +488,7 @@ def test_gan_step_card_matches_cpu(card):
     from ich_tpu_torch.ops.masks import random_ff_masks
 
     images = torch.from_numpy(np.random.default_rng(0).uniform(size=(4, 32, 32)).astype(np.float32))
-    masks = random_ff_masks(torch.Generator().manual_seed(1), 4, (32, 32), n_draw=(1, 3),
+    masks = random_ff_masks(prng.prng_key(1), 4, (32, 32), n_draw=(1, 3),
                             vertex=(2, 5), brush_width=(4, 8), length=(4, 10))
     runs = []
     for t in _gan_pair():
@@ -541,7 +538,8 @@ def test_sn_conv_card_matches_cpu(card):
 def test_detector_device_ops_card_match_cpu(card):
     """The detector's device work on the card against the CPU: morphology
     and hysteresis equal, the free-form mask render equal (draws from one
-    CPU generator), and detect() with an oracle inpainter equal."""
+    key), and detect() with an oracle inpainter, KL and W1 (its null sample
+    drawn on each device), equal."""
     from ich_tpu_torch.ops import morphology as morph
     from ich_tpu_torch.ops.masks import draw_ff_masks, render_ff_masks
     from ich_tpu_torch.train.inpaint_ad import InpaintAnomalyDetector
@@ -555,7 +553,7 @@ def test_detector_device_ops_card_match_cpu(card):
     x = torch.from_numpy(rng.gamma(1.5, size=(128, 128)).astype(np.float32))
     assert torch.equal(morph.hysteresis_threshold(x, 1.0, 3.0),
                        morph.hysteresis_threshold(x.cuda(), 1.0, 3.0).cpu())
-    draws = draw_ff_masks(torch.Generator().manual_seed(4), 8, (256, 256))
+    draws = draw_ff_masks(prng.prng_key(4), 8, (256, 256))
     cpu = render_ff_masks(draws, (256, 256))
     gpu = render_ff_masks({k: v.cuda() for k, v in draws.items()}, (256, 256)).cpu()
     assert float((cpu != gpu).float().mean()) <= 1e-4  # only stroke-edge pixels may differ
@@ -571,9 +569,10 @@ def test_detector_device_ops_card_match_cpu(card):
 
     kw = dict(grid_hole=(16, 16), grid_step=8, batch_size=8, n_iter=2,
               grid_anomaly_inpaint=((32, 32), (32, 32)))
-    a = InpaintAnomalyDetector(oracle, device="cpu", **kw).detect(image)
-    b = InpaintAnomalyDetector(oracle, device="cuda", **kw).detect(image)
-    assert np.array_equal(a, b) and a[22:32, 26:38].all()
+    for w1 in (False, True):
+        a = InpaintAnomalyDetector(oracle, device="cpu", use_wasserstein=w1, **kw).detect(image)
+        b = InpaintAnomalyDetector(oracle, device="cuda", use_wasserstein=w1, **kw).detect(image)
+        assert np.array_equal(a, b) and a[22:32, 26:38].all(), w1
 
 
 def _step_pair(build):
@@ -596,7 +595,8 @@ def test_ae_fcdd_steps_card_match_cpu(card, kind):
     """One step of the AE (small AENet, lambda 1) or of FCDD (the VGG stack,
     the ellipses and corruption draws injected) at batch 4 of 64^2: the loss
     within rtol 1e-4, every weight within Adam's first-step bound and 98%
-    within lr / 10."""
+    within lr / 10; FCDD's ellipses from one key, rendered on each device,
+    equal but for edge pixels."""
     from ich_tpu_torch.models.ae import AENet
     from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG
     from ich_tpu_torch.ops.masks import draw_ellipses_batch
@@ -614,10 +614,13 @@ def test_ae_fcdd_steps_card_match_cpu(card, kind):
             return t
 
         def step(t, state):
-            return t._step(state, x.to(t.device), None)
+            return t._step(state, x.to(t.device), prng.prng_key(6))
     else:
-        ell = draw_ellipses_batch(torch.Generator().manual_seed(6), 4, (64, 64),
-                                  major_axis=(3, 12), minor_axis=(2, 8))
+        ell = draw_ellipses_batch(prng.prng_key(6), 4, (64, 64), major_axis=(3, 12),
+                                  minor_axis=(2, 8))
+        on_card = draw_ellipses_batch(prng.prng_key(6), 4, (64, 64), "cuda", major_axis=(3, 12),
+                                      minor_axis=(2, 8))
+        assert float((on_card.cpu() != ell).float().mean()) <= 1e-4  # edge pixels only
         u = torch.tensor([0.2, 0.7, 0.1, 0.4])
         labels = torch.tensor([0, 0, 1, 0])
 
@@ -659,19 +662,34 @@ def test_gated_unet_step_card_matches_cpu(card):
 
 
 def test_ellipse_render_and_upsample_card_match_cpu(card):
-    """The ellipse render from one CPU generator's draws (equal but for
-    pixels on an ellipse's edge, at most 1e-4 of them) and the receptive
-    upsample of a 32x32 score map to 256^2 (within 1e-5 of its scale)."""
+    """The ellipse render from one key's draws (equal but for pixels on an
+    ellipse's edge, at most 1e-4 of them), the noise drawn on the card equal
+    to the CPU's, and the receptive upsample of a 32x32 score map to 256^2
+    (within 1e-5 of its scale)."""
     from ich_tpu_torch.models.fcdd import receptive_upsample
     from ich_tpu_torch.ops.masks import draw_ellipse_params, render_ellipses
 
-    draws = draw_ellipse_params(torch.Generator().manual_seed(8), 32, (256, 256), noise=0.05)
+    draws = draw_ellipse_params(prng.prng_key(8), 32, (256, 256), noise=0.05)
+    on_card = draw_ellipse_params(prng.prng_key(8), 32, (256, 256), noise=0.05, device="cuda")
+    assert all(torch.equal(draws[k], v.cpu()) for k, v in on_card.items())
     cpu = render_ellipses(draws, (256, 256))
     gpu = render_ellipses({k: v.cuda() for k, v in draws.items()}, (256, 256)).cpu()
     assert float((cpu != gpu).float().mean()) <= 1e-4
     s = torch.randn(4, 1, 32, 32, generator=torch.Generator().manual_seed(9))
     a, b = receptive_upsample(s, (256, 256)), receptive_upsample(s.cuda(), (256, 256)).cpu()
     assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_normal_draws_on_the_card_equal_the_cpu(card):
+    """jax.random's ``normal`` at 2^18 words, which rng computes on the
+    device, equals the same draw on the CPU, the far tails (erf_inv's sqrt
+    branch) included."""
+    key = prng.prng_key(42)
+    for shape, k in (((4, 256, 256), key), ((4, 256, 256), prng.split(key, 4))):
+        a = prng.normal(k, shape[1:] if k.dim() > 1 else shape, "cuda").cpu()
+        b = prng.normal(k, shape[1:] if k.dim() > 1 else shape, "cpu")
+        assert float(b.abs().max()) > 4.0  # draws in the tails
+        assert torch.equal(a, b)
 
 
 def test_nccl_world1_step_matches_plain_step(card, tmp_path):

@@ -5,7 +5,8 @@ ich_tpu's, on numpy-seeded inputs.
 Held: the grid masks, dilation / erosion / opening / closing and the
 hysteresis threshold equal; the KL map at rtol 1e-5; W1 with JAX's null
 draws injected at atol 1e-6; ``detect`` and ``robust_anomaly_detect`` with
-an oracle inpainter: the first distance map at rtol 1e-5 and the masks
+an oracle inpainter (W1's null sample drawn by the port from the JAX
+package's keys): the first distance map at rtol 1e-5 and the masks
 equal but where a pixel's map value lies within 1e-5 of a threshold (those
 pixels are counted and printed); the anomaly map of the ensemble equal; the
 mask render with JAX's draws equal but at pixels within 1e-4 of a stroke's
@@ -28,6 +29,7 @@ from ich_tpu_torch.data.png import read_png_gray
 from ich_tpu_torch.ops import masks as M
 from ich_tpu_torch.ops import morphology as morph
 from ich_tpu_torch.train import inpaint_ad as ad
+from ich_tpu_torch.utils.rng import prng_key
 
 NEAR = 1e-5  # a map value this close to a threshold may fall either side
 
@@ -166,14 +168,6 @@ def test_detect_matches_jax_with_an_oracle(monkeypatch, wasserstein):
     jdet = jad.InpaintAnomalyDetector(_JaxOracle(clean), use_wasserstein=wasserstein, **KW)
     pdet = ad.InpaintAnomalyDetector(_port_oracle(clean), use_wasserstein=wasserstein,
                                      device="cpu", **KW)
-    if wasserstein:  # JAX's null draws: PRNGKey(seed), folded with i + 1 for cleanup pass i
-        key = jax.random.PRNGKey(KW["seed"])
-
-        def null(call, shape):
-            k = key if call == 0 else jax.random.fold_in(key, call)
-            return torch.from_numpy(np.array(jax.random.normal(k, shape)))
-
-        pdet._null_normals = null
     want = np.asarray(jdet.detect(image))
     got = pdet.detect(image)
     assert len(jrec) == len(prec) == 1 + KW["n_iter"]
@@ -295,8 +289,7 @@ def test_mask_render_with_jax_draws_matches_jax():
 
 
 def test_mask_draws_follow_the_jax_ranges():
-    gen = torch.Generator().manual_seed(0)
-    d = M.draw_ff_masks(gen, 256, (64, 80), **CONFIG_MASK)
+    d = M.draw_ff_masks(prng_key(0), 256, (64, 80), **CONFIG_MASK)
     assert d["n_strokes"].min() >= 1 and d["n_strokes"].max() == 3
     assert d["n_vert"].min() == 5 and d["n_vert"].max() == 14 and d["n_vert"].shape == (256, 3)
     assert d["width"].min() == 10 and d["width"].max() == 24
@@ -307,7 +300,7 @@ def test_mask_draws_follow_the_jax_ranges():
     assert abs(float(d["sy"].mean()) - 32) < 2 and abs(float(d["sy"].std()) - 8) < 1
     assert d["n_sp"].max() == 9 and d["cy"].max() <= 63 and d["cx"].max() <= 79
     assert d["r"].min() == 1 and d["r"].max() == 4
-    m = M.random_ff_masks(torch.Generator().manual_seed(1), 4, (64, 64), **CONFIG_MASK)
+    m = M.random_ff_masks(prng_key(1), 4, (64, 64), **CONFIG_MASK)
     assert m.shape == (4, 64, 64) and set(torch.unique(m).tolist()) <= {0.0, 1.0}
     assert (m.reshape(4, -1).sum(1) > 0).all()
 

@@ -181,7 +181,8 @@ def test_the_chip_constants_are_jaxs():
     bits = np.asarray(jax.random.bits(k, (n,), jnp.uint32)).astype(np.int64)
     u = np.asarray(jax.random.uniform(jax.random.fold_in(k, 1), (n,), minval=-2.5, maxval=4.0))
     t = np.asarray(jax.random.truncated_normal(jax.random.fold_in(k, 2), -2.0, 2.0, (n,)))
-    assert cs.RNG_KNOWN == {
+    draws = {k: v for k, v in cs.RNG_KNOWN.items() if k != "paths"}  # test_torch_keyed_paths
+    assert draws == {
         "fold_in_7": [int(x) for x in np.asarray(jax.random.fold_in(k, 7))],
         "split_3": [[int(x) for x in r] for r in np.asarray(jax.random.split(k, 3))],
         "bits_sum": int(bits.sum()), "bits_head": bits[:4].tolist(),

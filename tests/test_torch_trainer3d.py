@@ -33,6 +33,7 @@ from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
 from ich_tpu_torch.ops.transforms3d import default_patch_augmentation
 from ich_tpu_torch.train.segmentation3d import UNet3D
+from ich_tpu_torch.utils.rng import prng_key
 
 torch.set_num_threads(2)
 
@@ -125,7 +126,7 @@ def _fixed_augment(b):
                       jnp.clip(x + jnp.asarray(f)[:, None, None, None, None], 0, 1), x)
         return x, y
 
-    def port_fn(gen, x, y):
+    def port_fn(key, x, y):
         mt, ot = torch.from_numpy(m), torch.from_numpy(o)
         x, y = T3._warp_inplane(x, mt, ot, 1), T3._warp_inplane(y, mt, ot, 0)
         x = T.AdjustBrightness().apply_factors(x, torch.from_numpy(apply), torch.from_numpy(f))
@@ -151,7 +152,7 @@ def test_one_step_matches_jax(augment):
     jt.state, want = step(jt.state, jnp.asarray(imgs), jnp.asarray(msks), jax.random.PRNGKey(0))
     state = pt._train_state(TRAIN["steps_per_epoch"])
     pt.unet.train()
-    got = pt._step(state, torch.from_numpy(imgs), torch.from_numpy(msks), torch.Generator())
+    got = pt._step(state, torch.from_numpy(imgs), torch.from_numpy(msks), prng_key(0))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     _check_weights(jt._variables(), pt.unet, start, 1)
 

@@ -2,10 +2,10 @@
 photometric jitter against the JAX package's.
 
 Warps are held with the same ``(m, o)``: images within 1e-6, masks equal.
-The random transforms are held with the JAX package's draws injected into
-the port (angles, flip flags, brightness factors); the port's own draws,
-which come from a ``torch.Generator`` and cannot match ``jax.random``, are
-held by their distributions."""
+The random transforms draw from a key what the JAX package's draw from it
+(angles, flip flags, brightness factors: equal), and a ``Compose3D`` from a
+key gives the JAX package's output (masks equal, images within 1e-5); the
+draws are also held by their distributions."""
 
 import math
 
@@ -64,21 +64,14 @@ def test_warp_inplane_matches_jax(shape, order):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
-def _inject(monkeypatch, angles, flags):
-    """The port's draws replaced: ``_uniform`` returns ``angles``, each
-    ``_bernoulli`` the next of ``flags``."""
-    flags = list(flags)
-    monkeypatch.setattr(T3, "_uniform", lambda gen, b, lo, hi: torch.from_numpy(angles))
-    monkeypatch.setattr(T3, "_bernoulli", lambda gen, b, p: torch.from_numpy(flags.pop(0)))
-
-
 @pytest.mark.parametrize("flip_h,flip_w", [(True, True), (True, False), (False, True)])
-def test_affine_augment3d_matches_jax(monkeypatch, flip_h, flip_w):
-    """The JAX package's angles and H / W flips (drawn from its keys as its
-    ``__call__`` does) injected: the composed (m, o) within 1e-6, and the
-    warped (B, D, H, W, 1) image within 1e-5 (XLA may fuse the composition
-    and the angle's cosine differently, an ulp of ``m`` moves a sample by
-    about 1e-6) and the mask equal."""
+def test_affine_augment3d_matches_jax(flip_h, flip_w):
+    """From one key, the port draws the JAX package's angles and H / W
+    flips (``kr, kh, kw = split(key, 3)``): the composed (m, o) within 1e-6
+    of the JAX draws', and the warped (B, D, H, W, 1) image within 1e-5 of
+    the JAX package's (XLA may fuse the composition and the angle's cosine
+    differently, an ulp of ``m`` moves a sample by about 1e-6) and the mask
+    equal."""
     b, key = 4, jax.random.PRNGKey(11)
     aug = dict(rotate=(-10.0, 10.0), p_flip=0.5, flip_h=flip_h, flip_w=flip_w)
     kr, kh, kw = jax.random.split(key, 3)
@@ -89,9 +82,8 @@ def test_affine_augment3d_matches_jax(monkeypatch, flip_h, flip_w):
     mask = (x > 0.7).astype(np.float32)
     want_img, want_mask = JT3.AffineAugment3D(**aug)(key, jnp.asarray(x), jnp.asarray(mask))
 
-    _inject(monkeypatch, angles, flags)
     port = T3.AffineAugment3D(**aug)
-    m, o = port.affine_params(torch.Generator(), b)
+    m, o = port.affine_params(prng_key(11), b)
     sy = np.where(flags[0], -1.0, 1.0) if flip_h else np.ones(b)
     sx = np.where(flags[-1], -1.0, 1.0) if flip_w else np.ones(b)
     th = np.deg2rad(angles.astype(np.float64))
@@ -99,26 +91,29 @@ def test_affine_augment3d_matches_jax(monkeypatch, flip_h, flip_w):
                        np.stack([-np.sin(th) * sy, np.cos(th) * sx], 1)], 1)
     np.testing.assert_allclose(m.numpy(), want_m, rtol=0, atol=1e-6)
     assert not o.any()
-    _inject(monkeypatch, angles, flags)
-    got_img, got_mask = port(torch.Generator(), torch.from_numpy(x), torch.from_numpy(mask))
+    got_img, got_mask = port(prng_key(11), torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
 
 
-def test_rotate_inplane_matches_jax(monkeypatch):
+def test_rotate_inplane_matches_jax():
     b, key = 3, jax.random.PRNGKey(2)
     angles = np.array(jax.random.uniform(key, (b,), minval=-20.0, maxval=20.0))
     x = _volume((b, 2, 16, 16), 1, seed=2)
     want = np.asarray(JT3.RotateInPlane(-20, 20)(key, jnp.asarray(x)))
-    _inject(monkeypatch, angles, [])
-    got = T3.RotateInPlane(-20, 20)(torch.Generator(), torch.from_numpy(x)).numpy()
+    m, _ = T3.RotateInPlane(-20, 20).affine_params(prng_key(2), b)
+    th = np.deg2rad(angles.astype(np.float64))
+    np.testing.assert_allclose(m[:, 0, 0].numpy(), np.cos(th), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(m[:, 0, 1].numpy(), np.sin(th), rtol=0, atol=1e-6)
+    got = T3.RotateInPlane(-20, 20)(prng_key(2), torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)  # as AffineAugment3D
 
 
 @pytest.mark.parametrize("axes", [(1,), (2, 3), (1, 2, 3)])
 def test_flip3d_matches_jax(axes):
-    """The JAX package's flags (``bernoulli(fold_in(key, i))`` per axis)
-    injected: image and mask equal."""
+    """The port draws the JAX package's flags from the key
+    (``bernoulli(fold_in(key, i))`` per axis): flags, image and mask
+    equal."""
     b, key = 6, jax.random.PRNGKey(4)
     flags = np.stack([np.asarray(jax.random.bernoulli(jax.random.fold_in(key, i), 0.5, (b,)))
                       for i in range(len(axes))])
@@ -132,6 +127,10 @@ def test_flip3d_matches_jax(axes):
                                   np.asarray(want_img))
     np.testing.assert_array_equal(flip.apply_flags(torch.from_numpy(mask), flags_t).numpy(),
                                   np.asarray(want_mask))
+    np.testing.assert_array_equal(flip.flip_flags(prng_key(4), b).numpy(), flags)
+    got_img, got_mask = flip(prng_key(4), torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_array_equal(got_img.numpy(), np.asarray(want_img))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
 
 
 @pytest.mark.parametrize("shape", [(5, 8, 8, 1), (5, 3, 8, 8, 1)], ids=["rank4", "rank5"])
@@ -179,37 +178,53 @@ def _sigma3(var: float) -> float:
 def test_rotation_and_flip_distributions():
     """Angles uniform on [low, high) (range and mean), flip rates ``p``
     within 3 sigma; AffineAugment3D's flips are the signs of its diagonal
-    (|angle| < 90 degrees)."""
-    gen = torch.Generator().manual_seed(0)
-    m, o = T3.RotateInPlane(-10, 20).affine_params(gen, N)
+    (|angle| < 90 degrees); each from its own key."""
+    m, o = T3.RotateInPlane(-10, 20).affine_params(prng_key(0), N)
     ang = np.degrees(np.arctan2(m[:, 0, 1].double().numpy(), m[:, 0, 0].double().numpy()))
     assert -10 - 1e-4 <= ang.min() < -9.9 and 19.9 < ang.max() <= 20 + 1e-4
     assert abs(ang.mean() - 5.0) <= _sigma3(30.0**2 / 12) and not o.any()
-    m, _ = T3.AffineAugment3D((-10, 10), p_flip=0.3).affine_params(gen, N)
+    m, _ = T3.AffineAugment3D((-10, 10), p_flip=0.3).affine_params(prng_key(1), N)
     for axis in (0, 1):
         rate = float((m[:, axis, axis] < 0).double().mean())
         assert abs(rate - 0.3) <= _sigma3(0.3 * 0.7), (axis, rate)
-    flags = T3.Flip3D(0.2, axes=(1, 2, 3)).flip_flags(gen, N)
+    flags = T3.Flip3D(0.2, axes=(1, 2, 3)).flip_flags(prng_key(2), N)
     assert flags.shape == (3, N)
     assert all(abs(float(f.double().mean()) - 0.2) <= _sigma3(0.2 * 0.8) for f in flags)
 
 
 def test_compose3d_draws_from_one_generator():
-    """Same seed, same result; another seed, another; the mask stays binary
+    """Same key, same result; another key, another; the mask stays binary
     and the shapes stay, with and without the channel axis."""
     pipe = T3.default_patch_augmentation(flip_axes=(1, 2, 3))
     for shape in ((4, 6, 16, 16), (4, 6, 16, 16, 1)):
         x = torch.from_numpy(_volume(shape, 1, seed=9))
         mask = (x > 0.6).float()
-        a = pipe(torch.Generator().manual_seed(1), x, mask)
-        b = pipe(torch.Generator().manual_seed(1), x, mask)
-        c = pipe(torch.Generator().manual_seed(2), x, mask)
+        a = pipe(prng_key(1), x, mask)
+        b = pipe(prng_key(1), x, mask)
+        c = pipe(prng_key(2), x, mask)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
         assert not torch.equal(a[0], c[0])
         assert a[0].shape == x.shape and a[1].shape == mask.shape
         assert set(np.unique(a[1].numpy())) <= {0.0, 1.0}
-        only = pipe(torch.Generator().manual_seed(1), x)
+        only = pipe(prng_key(1), x)
         assert torch.equal(only, a[0])
+
+
+@pytest.mark.parametrize("kw", [{}, {"flip_axes": (1, 2, 3)}, {"brightness": None}])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_compose3d_from_a_key_equals_jax(kw, seed):
+    """``default_patch_augmentation`` from one key: the JAX package's output
+    (``split(key, len(transforms))``, each part's draws from its key), the
+    mask equal and the image within 1e-5 (as ``AffineAugment3D``)."""
+    b = 4
+    x = _volume((b, 5, 16, 20, 1), 1, seed=12 + seed)
+    mask = (x > 0.6).astype(np.float32)
+    want_img, want_mask = JT3.default_patch_augmentation(**kw)(
+        jax.random.PRNGKey(seed), jnp.asarray(x), jnp.asarray(mask))
+    got_img, got_mask = T3.default_patch_augmentation(**kw)(
+        prng_key(seed), torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img), rtol=0, atol=1e-5)
 
 
 def test_registry_names():
