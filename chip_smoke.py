@@ -251,8 +251,9 @@ its last line:
    equal) and not from scratch's; (b) the table and
    ``compare_to_reference`` against the JAX package's snapshots in
    ``docs/`` run, headed by the run's ``provenance.json``. The EDT
-   launches over phase 14 read 0. Its nets, augmentation, corruption,
-   views and region cells are jax.random's draws (``utils/rng.py``);
+   launches over phase 14 read 0, the dropout kernel's do not. Its nets,
+   augmentation, corruption, views, region cells and dropout masks are
+   the JAX package's draws (``utils/rng.py``, ``ops/dropout.py``);
 15. rng: jax.random's threefry streams computed on the card
    (``ich_tpu_torch.utils.rng``, int64 torch ops there for a draw of
    more than ``HOST_WORDS`` words): ``fold_in`` and ``split`` of
@@ -274,16 +275,30 @@ its last line:
    ``prng_key(42)`` on the card (``init_like_flax``), held against
    ``NET_KNOWN`` (flax's ``init`` checksums) and equal to the same nets
    drawn on the CPU; the draws' and the inits' times. The EDT launches
-   over phase 15 read 0.
+   over phase 15 read 0;
+16. dropout: the keyed dropout kernel (``csrc/dropout.cu``, flax's
+   ``nn.Dropout`` over XLA's Philox stream): (a) ``torch.equal`` to its
+   plain version at ``configs/unet2d.json``'s five dropout shapes at batch
+   16, a ragged (3, 5, 7, 9) and a bf16 NCDHW (2, 16, 64, 64, 64), each in
+   NCHW and channels-last storage at stream offsets 0, 4 and 6, and its
+   backward pass; (b) equal to flax's answers for ``DROPOUT_CASES``
+   (``DROPOUT_KNOWN``, computed with JAX on the CPU); (c) its time at the
+   five shapes against the plain version, ``F.dropout``, the parent
+   commit's ``bernoulli_`` path and the byte bound; (d) its launches in
+   one ``train2d_bs16`` step (5 forward, 5 backward); (e) that step's time
+   with the parent's dropout (its module and per-step set-up) and with the
+   kernel in 10 pairs of turns, alternating which runs first.
 
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after (the training, SSL, phase 9, phase 11, 12, 13, 14 and 15
-paths must read 0). The line
-before the last is a JSON object with each EDT kernel's launches on the
-path that owns it (the GAN training of phase 10 (a)), its launches by path
-(phase 4's EDT leg and phases 14 and 15 too), its error against the plain
-version, both times and its bound; the last line is ``{"ok": true,
-"device": {...}}``.
+paths must read 0 EDT launches; the GAN path 0 dropout launches). The line
+before the last is a JSON object with each kernel's launches on the path
+that owns it (the GAN training of phase 10 (a) for the EDT kernels, phase
+6 (a)'s k-fold training for dropout), its launches by path (phase 4's EDT
+leg and phases 14 and 15 too, for dropout the study and a train2d_bs16
+step), its error against the plain version, its times, its bound and, for
+dropout, ``F.dropout``'s time; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -291,12 +306,14 @@ from __future__ import annotations
 import contextlib
 import csv
 import functools
+import gc
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 
@@ -352,8 +369,11 @@ from ich_tpu_torch.kernels import _build
 from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG, receptive_upsample
 from ich_tpu_torch.models.inpainting import GatedGenerator, PatchDiscriminator, SAGatedGenerator
 from ich_tpu_torch.models.resnet import resnet18
+from ich_tpu_torch.models.init import flax_fold
+from ich_tpu_torch.models.layers import Dropout
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
+from ich_tpu_torch.ops import dropout as dropout_ops
 from ich_tpu_torch.ops import losses as losses_mod
 from ich_tpu_torch.ops import morphology as morph
 from ich_tpu_torch.ops.masks import (
@@ -584,6 +604,40 @@ NET_KNOWN = {
 STUDY_FRACTIONS = (0.25, 1.0)
 STUDY_ARMS = ("scratch", "pretrained", "contrastive_local")
 STUDY_SEED = 42
+# phase 16's known answers: flax's nn.Dropout (flax 0.12.3 on JAX 0.9.0's
+# CPU backend, whose rng_bit_generator is Philox4x32-10) under the key that
+# flax gives the first make_rng of DROPOUT_PATH from
+# dropout_key(PRNGKey(DROPOUT_SEED)), on dropout_input(shape) from position
+# `offset` of the stream, as dropout_answers reads them
+# (tests/test_torch_keyed_dropout.py recomputes them with flax)
+DROPOUT_SEED = 42
+DROPOUT_PATH = ("encoder", "down_0", "Dropout_0")
+DROPOUT_CASES = (("f32_p05", "float32", (2, 6, 8, 8), 0.5, 0),
+                 ("f32_p01_off6", "float32", (2, 6, 8, 8), 0.1, 6),
+                 ("bf16_p01_off4", "bfloat16", (1, 6, 4, 8, 8), 0.1, 4))
+DROPOUT_KNOWN = {
+    "key": [478273173, 4266244382, 1499700442, 2953261298],
+    "f32_p05": {"kept": 364, "sum": -143.5, "head": [-12.5, -3.25, 6.0, 0.0, -0.75, 8.5],
+                "tail": [9.75, -6.25, 0.0, 0.0]},
+    "f32_p01_off6": {"kept": 674, "sum": -62.77777951955795,
+                     "head": [-6.94444465637207, -1.8055555820465088, 0.0, -5.555555820465088,
+                              -0.4166666865348816, 4.722222328186035],
+                     "tail": [5.4166669845581055, -3.472222328186035, 1.6666667461395264,
+                              6.805555820465088]},
+    "bf16_p01_off4": {"kept": 1350, "sum": -0.46484375,
+                      "head": [-6.96875, -1.8125, 3.34375, -5.5625, 0.0, 4.71875],
+                      "tail": [-3.75, 1.390625, 6.53125, -2.359375]},
+}
+# phase 16: configs/unet2d.json's dropout inputs at batch 16 (the four down
+# blocks and the bottleneck of 256^2 slices), a ragged shape, and the 3D
+# net's first block at a 64^3 patch in bf16
+DROPOUT_SHAPES = ((16, 32, 256, 256), (16, 64, 128, 128), (16, 128, 64, 64), (16, 256, 32, 32),
+                  (16, 512, 16, 16))
+DROPOUT_RAGGED = (3, 5, 7, 9)
+DROPOUT_BF16 = (2, 16, 64, 64, 64)
+DROPOUT_OFFSETS = (0, 4, 6)
+DROPOUT_TURN_STEPS = 15  # timed train2d_bs16 steps a turn
+DROPOUT_PAIRS = 10  # pairs of parent and change turns
 DEV = "cuda"
 
 
@@ -1153,8 +1207,9 @@ def _trainer(cfg: dict, device, net: dict | None = None, mesh=None, **overrides)
 
 
 def _train_kfold(cfg: dict, folds: list) -> None:
-    """(a) the k-fold experiment end to end."""
-    edt.launches = edt.mask_launches = 0
+    """(a) the k-fold experiment end to end; returns the keyed dropout
+    kernel's launches on it."""
+    edt.launches = edt.mask_launches = dropout_ops.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_supervised_2d(cfg, datasets_by_fold=lambda k: folds[k], device=DEV)
@@ -1189,7 +1244,12 @@ def _train_kfold(cfg: dict, folds: list) -> None:
         avg = f.read().strip().replace("\n", "; ")
     print(f"train2d k-fold: {cfg['split']['n_fold']} folds x {cfg['train']['n_epoch']} epochs "
           f"in {wall!r} s ({avg}); port kernel launches on the training path "
-          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}}}")
+          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}, "
+          f"'keyed_dropout': {dropout_ops.launches}}}")
+    drops = cfg["net"]["depth"]  # the down blocks and the bottleneck
+    check(dropout_ops.launches > 0 and dropout_ops.launches % (2 * drops) == 0,
+          f"train2d: {dropout_ops.launches} dropout launches, not 2 x {drops} a step")
+    return dropout_ops.launches
 
 
 def _hold_run(cfg: dict, dev, x, threads: int) -> dict:
@@ -1369,18 +1429,19 @@ def _train_profile(t: UNet2D, fold) -> None:
                            f"TF32 on)", OP_GROUPS_TRAIN, TRAIN_RANGES))
 
 
-def phase_train2d(work: str) -> None:
+def phase_train2d(work: str) -> int:
     cfg = load_train_cfg(work)
     t0 = time.perf_counter()
     folds = _fold_data(cfg)
     print(f"train2d data: {len(folds)} folds of {TRAIN_FOLD[0]} + {TEST_FOLD[0]} synthetic "
           f"slices at {cfg['data']['size']}^2 in {time.perf_counter() - t0!r} s")
-    _train_kfold(cfg, folds)
+    launches = _train_kfold(cfg, folds)
     _train_hold(cfg, folds[0][0])
     _warp_hold(cfg, folds[0][0])
     warm = _step_times(cfg, folds[0][0])
     _epoch_times(cfg, *folds[0])
     _train_profile(warm, folds[0][0])
+    return launches
 
 
 def load_train3d_cfg(work: str) -> dict:
@@ -2488,13 +2549,13 @@ def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
     n_normal = len(normal)
     spe = n_normal // bs
     fn = _write_cfg(cfg, os.path.join(work, "gan.json"))
-    edt.launches = edt.mask_launches = 0
+    edt.launches = edt.mask_launches = dropout_ops.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = inpainting_gan.main([fn, "--device", DEV])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _edt_launches()
+    launches, dropout_launches = _edt_launches(), dropout_ops.launches
     steps = spe * GAN_EPOCHS
     for name in ("checkpoint.bin", "snpatchgan.bin", "outputs.json"):
         check(os.path.exists(os.path.join(out, name)), f"gan: no {name}")
@@ -2516,7 +2577,8 @@ def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
           f"{n_normal} non-ICH slices, {GAN_EPOCHS} epochs x {spe} steps with a checkpoint each "
           f"epoch in {wall!r} s (RSNA load included); [epoch, G, D, L1] {hist!r}; the saved "
           f"generator's validation masked L1 {l1_valid!r}, {len(pngs)} PNGs of {png.shape}; EDT "
-          f"launches on the path {launches} for {steps} steps")
+          f"launches on the path {launches} for {steps} steps, keyed dropout launches "
+          f"{dropout_launches}")
     check(len(hist) == GAN_EPOCHS and all(np.isfinite(r[1:]).all() for r in hist),
           f"gan: losses not finite {hist}")
     check(hist[-1][3] < hist[0][3], f"gan: L1 did not fall {hist}")
@@ -2538,7 +2600,8 @@ def _gan_train(cfg: dict, work: str, normal: np.ndarray) -> tuple:
     check(len(hist2) == GAN_EPOCHS + 1 and hist2[:GAN_EPOCHS] == hist,
           "gan: the resume did not run exactly one more epoch")
     check(all(v == 2 * spe for v in more.values()), f"gan resume: EDT launches {more}")
-    return out, launches, steps
+    check(dropout_launches == 0, "gan: the dropout kernel ran on the GAN path")
+    return out, {**launches, "keyed_dropout": dropout_launches}, steps
 
 
 def _gan_trainer(cfg: dict, device, batch: int, self_attention: bool = True,
@@ -4440,12 +4503,300 @@ def phase_rng() -> dict:
     return launches
 
 
+# -- phase 16: keyed dropout -------------------------------------------------------
+
+def dropout_known_key() -> tuple:
+    """The op's key of ``DROPOUT_KNOWN``: ``PRNGKey(DROPOUT_SEED)``'s words
+    and ``DROPOUT_PATH``'s fold word."""
+    return (*prng.prng_key(DROPOUT_SEED).tolist(), flax_fold(DROPOUT_PATH, 1))
+
+
+def dropout_input(shape) -> np.ndarray:
+    """Phase 16's known-answer input in channels-last order: ``((37 j) %
+    101 - 50) / 8`` at position j, float32 (exact in bf16 too)."""
+    n = int(np.prod(shape))
+    return (((np.arange(n) * 37) % 101 - 50) / 8).astype(np.float32)
+
+
+def dropout_tensor(v: np.ndarray, shape, dtype, device="cpu") -> torch.Tensor:
+    """``v`` (channels-last order) as a channels-first tensor of ``shape``
+    (a channels-last view)."""
+    last = (shape[0], *shape[2:], shape[1])
+    return torch.from_numpy(v).reshape(last).to(device, dtype).movedim(-1, 1)
+
+
+def dropout_answers(y) -> dict:
+    """What phase 16 compares of a dropout output ``y``, flat in
+    channels-last order: the kept count, the float64 sum, the first six
+    and the last four values."""
+    if isinstance(y, torch.Tensor):
+        y = y.detach().float().cpu().numpy()
+    y = np.asarray(y, np.float64).ravel()
+    return {"kept": int((y != 0).sum()), "sum": float(y.sum()),
+            "head": [float(a) for a in y[:6]], "tail": [float(a) for a in y[-4:]]}
+
+
+class ParentDropout(torch.nn.Module):
+    """The parent commit's Dropout, for the parent turns of phase 16 (e): a
+    mask that ``bernoulli_`` draws from ``self.generator``, divided by the
+    keep rate and multiplied in, the mask saved for the backward pass."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = 1.0 - self.p
+        with torch.profiler.record_function("dropout"):
+            mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+            return x * mask.div_(keep)
+
+
+def parent_set_dropout(net: torch.nn.Module, key, mesh=None) -> None:
+    """The parent commit's per-step dropout set-up: a generator on the card
+    seeded with the key's 64 bits, given to every Dropout."""
+    gen = None
+    if key is not None:
+        k0, k1 = (int(v) & 0xFFFFFFFF for v in torch.as_tensor(key).reshape(2).tolist())
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed((k0 << 32) | k1)
+    for m in net.modules():
+        if isinstance(m, ParentDropout):
+            m.generator = gen
+
+
+def _dropout_equal(key) -> float:
+    """(a) the kernel ``torch.equal`` to its plain version, NCHW and
+    channels-last, at every offset; the backward pass; returns the max
+    abs difference."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cases = ([(s, torch.float32, (0.5,)) for s in DROPOUT_SHAPES]
+             + [(DROPOUT_RAGGED, torch.float32, (0.5, 0.1)),
+                (DROPOUT_BF16, torch.bfloat16, (0.5, 0.1))])
+    err, n = 0.0, 0
+    t0 = time.perf_counter()
+    for shape, dtype, rates in cases:
+        x = torch.randn(shape, device=DEV, generator=gen).to(dtype)
+        last = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
+        for xl in (x, x.contiguous(memory_format=last)):
+            for off in DROPOUT_OFFSETS:
+                for rate in rates:
+                    before = dropout_ops.launches
+                    k = dropout_ops.keyed_dropout(xl, key, rate, off)
+                    p = dropout_ops.keyed_dropout_plain(xl, key, rate, off)
+                    torch.cuda.synchronize()
+                    err = max(err, float((k.float() - p.float()).abs().max()))
+                    check(dropout_ops.launches == before + 1 and k.stride() == xl.stride()
+                          and torch.equal(k, p),
+                          f"dropout: the kernel differs from the plain version at {shape} "
+                          f"{dtype} strides {xl.stride()} offset {off} rate {rate}")
+                    n += 1
+        del x
+    x = torch.randn(DROPOUT_SHAPES[0], device=DEV, generator=gen, requires_grad=True)
+    g = torch.randn(DROPOUT_SHAPES[0], device=DEV, generator=gen)
+    before = dropout_ops.launches
+    y = dropout_ops.keyed_dropout(x, key, 0.5, 4)
+    y.backward(g)
+    torch.cuda.synchronize()
+    back = (dropout_ops.launches == before + 2
+            and torch.equal(x.grad, dropout_ops.keyed_dropout_plain(g, key, 0.5, 4)))
+    print(f"dropout (a) kernel against its plain version: {n} cases (the five "
+          f"configs/unet2d.json shapes at batch 16, rate 0.5; {DROPOUT_RAGGED} float32 and "
+          f"{DROPOUT_BF16} bfloat16 at rates 0.5 and 0.1; each NCHW and channels-last, offsets "
+          f"{DROPOUT_OFFSETS}) torch.equal, max abs diff {err!r}; the backward pass at "
+          f"{DROPOUT_SHAPES[0]} is the kernel on the gradient (torch.equal, 2 launches) {back}; "
+          f"{time.perf_counter() - t0!r} s")
+    check(back, "dropout: the backward pass differs from the kernel on the gradient")
+    return err
+
+
+def _dropout_known() -> None:
+    """(b) the kernel against flax's answers, computed with JAX on the CPU."""
+    key = dropout_known_key()
+    check(list(dropout_ops.flax_dropout_key(key)) == DROPOUT_KNOWN["key"],
+          "dropout: the flax key differs from flax's")
+    oks = []
+    for name, dt, shape, rate, off in DROPOUT_CASES:
+        x = dropout_tensor(dropout_input(shape), shape, getattr(torch, dt), DEV)
+        for xl in (x, x.contiguous()):
+            y = dropout_ops.keyed_dropout(xl, key, rate, off)
+            oks.append(dropout_answers(y.movedim(1, -1).reshape(-1)) == DROPOUT_KNOWN[name])
+    print(f"dropout (b) the kernel on the card against flax's nn.Dropout (JAX's CPU answers) "
+          f"under the flax key of {'/'.join(DROPOUT_PATH)} from dropout_key(PRNGKey("
+          f"{DROPOUT_SEED})), {[c[0] for c in DROPOUT_CASES]} in both layouts: equal {oks}")
+    check(all(oks), "dropout: the kernel differs from flax's answers")
+
+
+def _kernel_device_ms(fn, x, n: int = 20) -> float:
+    """Mean device ms a call of ``fn(x)`` over ``n`` calls queued behind a
+    spin of the card (``torch.cuda._sleep``), so that CUDA events time the
+    kernels back to back and not the host's launch work."""
+    fn(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # some 60 ms: far longer than queueing the calls
+    start.record()
+    for _ in range(n):
+        fn(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _dropout_times(key) -> dict:
+    """(c) kernel, plain, ``F.dropout`` and the parent's ``bernoulli_``
+    path at the five shapes, in NCHW and in channels-last storage (the
+    train step's: its activations are channels-last), in turns (CUDA
+    events over back-to-back calls: what a caller waits, the host's launch
+    work included where it is the longer), and the kernel's device time
+    alone; returns the channels-last sums over one forward pass (the
+    kernels line's numbers) and the byte bound."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    fns = {
+        "ms": lambda x: dropout_ops.keyed_dropout(x, key, 0.5),
+        "plain_ms": lambda x: dropout_ops.keyed_dropout_plain(x, key, 0.5),
+        "library_ms": lambda x: F.dropout(x, 0.5, training=True),
+        "parent_ms": lambda x: x * torch.empty_like(x).bernoulli_(0.5, generator=gen).div_(0.5),
+    }
+    iters = {"ms": 50, "plain_ms": 5, "library_ms": 50, "parent_ms": 50}
+    totals = {}
+    for layout in ("NCHW", "channels_last"):
+        total = dict.fromkeys((*fns, "device_ms", "bound_ms"), 0.0)
+        for shape in DROPOUT_SHAPES:
+            x = torch.randn(shape, device=DEV, generator=gen)
+            if layout == "channels_last":
+                x = x.contiguous(memory_format=torch.channels_last)
+            row = dict.fromkeys(fns, 0.0)
+            for name in (*fns, *reversed(fns)):  # in turns, forth and back
+                row[name] += cuda_ms(fns[name], x, iters=iters[name]) / 2
+            row["bound_ms"] = _bytes_ms(2 * x.numel() * 4)  # x read once, y written once
+            row["device_ms"] = _kernel_device_ms(fns["ms"], x)
+            print(f"dropout (c) {shape} {layout} float32, rate 0.5: kernel {row['ms']!r} ms a "
+                  f"call ({row['device_ms']!r} ms on the device, "
+                  f"{100 * row['bound_ms'] / max(row['device_ms'], 1e-9):.1f}% of the bound), "
+                  f"plain {row['plain_ms']!r} ms, F.dropout {row['library_ms']!r} ms, the "
+                  f"parent's bernoulli_ path {row['parent_ms']!r} ms, bound {row['bound_ms']!r} "
+                  f"ms (bytes at {PEAK['hbm_tbs']} TB/s)")
+            total = {k: total[k] + row[k] for k in total}
+            del x
+        print(f"dropout (c) one forward pass's five launches at batch 16, {layout}: "
+              f"{json.dumps(total)}")
+        totals[layout] = total
+    return totals["channels_last"]
+
+
+def _dropout_steps(work: str) -> int:
+    """(d) the keyed dropout launches of one ``train2d_bs16`` step
+    (configs/unet2d.json, TF32 on); (e) its step time with the parent's
+    dropout (P: its module and its per-step set-up swapped in) and this
+    tree's (C), in ``DROPOUT_PAIRS`` pairs of turns, alternating which runs
+    first; returns (d)."""
+    cfg = load_train_cfg(work)
+    bs = TIMED_BATCHES[0]
+    fold = synthetic_ich_slices(n_slices=4 * bs, size=cfg["data"]["size"], n_volumes=4, seed=SEED)
+    aug = build_pipeline(cfg["data"]["augmentation"]["train"])
+    torch.backends.cudnn.allow_tf32 = True
+    t = _trainer(cfg, DEV, batch_size=bs, augment_fn=aug)
+    state = t._train_state(4)
+    batches = list(t._batches(fold.device_cache(DEV), np.arange(4 * bs).reshape(4, bs)))
+    t.unet.train()
+    for i in range(3):
+        t._train_step(state, batches[i % 4], K(i))
+    torch.cuda.synchronize()
+    dropout_ops.launches = 0
+    t._train_step(state, batches[0], K(3))
+    torch.cuda.synchronize()
+    launches = dropout_ops.launches
+    blocks = [b for b in (*t.unet.down_block, t.unet.bottleneck_block) if isinstance(b.dropout, Dropout)]
+    print(f"dropout (d) launches of one train2d_bs{bs} step: {launches} ({len(blocks)} "
+          f"Dropout layers, forward and backward)")
+    check(launches == 2 * len(blocks) == 10, "dropout: not 5 forward and 5 backward launches")
+
+    keyed = [b.dropout for b in blocks]
+    parent = [ParentDropout(b.dropout.p) for b in blocks]
+    step_mod = sys.modules[UNet2D.__module__]
+    change_set = step_mod.set_dropout_keys
+
+    gc_s = {True: 0.0, False: 0.0}  # seconds in the cyclic GC over the timed steps
+    gc_at = [None, None]  # (side being timed, start of the running collection)
+
+    def on_gc(phase, info):
+        if gc_at[0] is None:
+            return
+        if phase == "start":
+            gc_at[1] = time.perf_counter()
+        elif gc_at[1] is not None:
+            gc_s[gc_at[0]] += time.perf_counter() - gc_at[1]
+            gc_at[1] = None
+
+    def turn(parent_turn: bool) -> float:
+        for b, k, p in zip(blocks, keyed, parent):
+            b.dropout = p if parent_turn else k
+        step_mod.set_dropout_keys = parent_set_dropout if parent_turn else change_set
+        try:
+            for i in range(2):
+                t._train_step(state, batches[i % 4], K(i))
+            torch.cuda.synchronize()
+            gc_at[0] = parent_turn
+            t0 = time.perf_counter()
+            for i in range(DROPOUT_TURN_STEPS):
+                t._train_step(state, batches[i % 4], K(i))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / DROPOUT_TURN_STEPS * 1e3
+        finally:
+            gc_at[0] = None
+            step_mod.set_dropout_keys = change_set
+            for b, k in zip(blocks, keyed):
+                b.dropout = k
+
+    pairs = []
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(DROPOUT_PAIRS):
+            first = i % 2 == 0  # the parent first in even pairs
+            a = turn(first)
+            b = turn(not first)
+            pairs.append((a, b) if first else (b, a))  # (P, C)
+    finally:
+        gc.callbacks.remove(on_gc)
+    p_ms, c_ms = np.array(pairs).T
+    q1, q3 = np.percentile(p_ms, [25, 75])
+    wins = int((c_ms < p_ms).sum())
+    print(f"dropout (e) train2d_bs{bs} step, TF32 on, {DROPOUT_PAIRS} pairs of turns of "
+          f"{DROPOUT_TURN_STEPS} steps, (P, C) ms a step: {[(float(p), float(c)) for p, c in pairs]}; "
+          f"median P {float(np.median(p_ms))!r} ms, C {float(np.median(c_ms))!r} ms, C/P of the "
+          f"medians {float(np.median(c_ms) / np.median(p_ms))!r}; C faster in {wins} of "
+          f"{DROPOUT_PAIRS} pairs; the parent's own spread (IQR) {float(q3 - q1)!r} ms; "
+          f"{card_name_and_power()}")
+    print(f"dropout (e) seconds in the cyclic GC over the timed steps: P {gc_s[True]!r}, "
+          f"C {gc_s[False]!r} (objects tracked: {len(gc.get_objects())}); the process's "
+          f"threads: {[th.name for th in threading.enumerate()]}")
+    t.unet.eval()
+    return launches
+
+
+def phase_dropout(work: str) -> dict:
+    """16. The keyed dropout kernel: (a) ``torch.equal`` to its plain
+    version, (b) flax's answers, (c) its times, (d) its launches a
+    ``train2d_bs16`` step and (e) that step against the parent's dropout;
+    returns the kernels line's numbers."""
+    key = dropout_known_key()
+    err = _dropout_equal(key)
+    _dropout_known()
+    row = _dropout_times(key)
+    step = _dropout_steps(work)
+    return {**row, "max_abs_err": err, "step_launches": step}
+
+
 def phase_study(work: str) -> dict:
     """Phase 14: the paired label-efficiency study through its entry point
     at its width, seed 42, three arms (one a pretrainer) at two fractions;
     the table and the comparison with the JAX package's snapshots run. No
-    EDT kernel runs on it."""
-    edt.launches = edt.mask_launches = 0
+    EDT kernel runs on it; the keyed dropout kernel does (dropout 0.1)."""
+    edt.launches = edt.mask_launches = dropout_ops.launches = 0
     # the study's mode, torch's defaults (cuDNN's convolutions in TF32,
     # matmuls in float32), whatever an earlier phase left set
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
@@ -4455,7 +4806,7 @@ def phase_study(work: str) -> dict:
         results = study.main(out, seed=STUDY_SEED, arms=STUDY_ARMS,
                              fractions=STUDY_FRACTIONS, device=DEV, scale=STUDY_SCALE)
     wall = time.perf_counter() - t0
-    launches = _edt_launches()
+    launches = {**_edt_launches(), "keyed_dropout": dropout_ops.launches}
     n_folds = {**study.SCALE, **STUDY_SCALE}["n_folds"]
     vals = [v for arm in STUDY_ARMS for f in STUDY_FRACTIONS for v in results[arm][str(f)]]
     ok = (list(results) == list(STUDY_ARMS)
@@ -4486,8 +4837,10 @@ def phase_study(work: str) -> dict:
           f"against the JAX snapshots ({len(rows)} rows, {len(apart)} pairs of CIs apart at "
           f"this cut; {lines[0]!r}): {ok}")
     check(ok, "study: the table or the comparison is incomplete")
-    print(f"study: phase 14 in {time.perf_counter() - t0!r} s; EDT launches {launches}")
-    check(not any(launches.values()), "study: an EDT kernel ran on phase 14's path")
+    print(f"study: phase 14 in {time.perf_counter() - t0!r} s; port kernel launches {launches}")
+    check(launches["edt_envelope_pass"] == launches["distance_transform_edt_kernel"] == 0,
+          "study: an EDT kernel ran on phase 14's path")
+    check(launches["keyed_dropout"] > 0, "study: the dropout kernel did not run on phase 14")
     return launches
 
 
@@ -4503,7 +4856,7 @@ def main() -> None:
         phase_3d(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train2d_") as work:
-        phase_train2d(work)
+        train2d_drops = phase_train2d(work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train3d_") as work:
         phase_train3d(rng, work)
@@ -4527,6 +4880,9 @@ def main() -> None:
         study_launches = phase_study(work)
     torch.cuda.empty_cache()
     rng_launches = phase_rng()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dropout_") as work:
+        drop = phase_dropout(work)
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
@@ -4535,6 +4891,22 @@ def main() -> None:
                              "le_study": study_launches[name], "rng": rng_launches[name]},
         **edt_rows[name], "bound_by": "bytes", "library_ms": None,
     } for name in ("edt_envelope_pass", "distance_transform_edt_kernel")]
+    # dropout replaces no TPU kernel (XLA draws the JAX package's masks); its
+    # times are one forward pass's five launches at batch 16 (ms a call as a
+    # caller waits; device_ms the kernel alone), and the library call is
+    # F.dropout, the same function over torch's own stream
+    kernels.append({
+        "name": "keyed_dropout", "route": "cuda", "source": "ich_tpu_torch/csrc/dropout.cu",
+        "replaces": "none: XLA's rng_bit_generator under flax's nn.Dropout "
+                    "(ich_tpu/models/layers.py:188)",
+        "launches": train2d_drops,
+        "launches_by_path": {"train2d": train2d_drops, "le_study": study_launches["keyed_dropout"],
+                             "gan_train": gan_launches["keyed_dropout"],
+                             "train2d_bs16_step": drop["step_launches"]},
+        "max_abs_err": drop["max_abs_err"], "ms": drop["ms"], "plain_ms": drop["plain_ms"],
+        "bound_ms": drop["bound_ms"], "bound_by": "bytes", "library_ms": drop["library_ms"],
+        "device_ms": drop["device_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

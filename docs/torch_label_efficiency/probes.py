@@ -45,6 +45,7 @@ from ich_tpu_torch.experiments import label_efficiency_study as S  # noqa: E402
 from ich_tpu_torch.experiments import pretrain_finetune, supervised2d  # noqa: E402
 from ich_tpu_torch.models.layers import Dropout  # noqa: E402
 from ich_tpu_torch.train.segmentation2d import UNet2D  # noqa: E402
+from ich_tpu_torch.utils import rng as prng  # noqa: E402
 
 SEEDS = tuple(range(42, 50))
 NET = S.base_cfg("", "scratch")["net"]
@@ -105,12 +106,12 @@ def digests() -> None:
     kept = {f"{s}/{k}/{f}": supervised2d.subsample_label_fraction(
                 np.unique(by_fold(k)[0].vol_ids), f, np.random.default_rng(s + k)).tolist()
             for s in SEEDS for k in range(S.N_FOLDS) for f in (0.1, 0.25, 0.5)}
-    gen = torch.Generator().manual_seed(123456789)
+    key = prng.prng_key(123456789)
     aug = supervised2d.build_augment_fn(S.base_cfg("", "scratch")["data"]["augmentation"]["train"])
     x, y = torch.from_numpy(lab.images[:16])[..., None], torch.from_numpy(lab.masks[:16])[..., None]
-    xa, ya = aug(gen, x, y)
+    xa, ya = aug(key, x, y)
     drop = Dropout(0.1).train()
-    drop.generator = gen
+    drop.key = tuple(int(w) & 0xFFFFFFFF for w in key.tolist())
     net = supervised2d.build_unet_from_cfg(NET, seed=43)
     w = net.state_dict()["down_block.0.conv1.weight"]
     _probe(numpy=np.__version__, torch=torch.__version__, scipy=scipy.__version__,

@@ -209,8 +209,8 @@ def _last_losses(out_root: str, arm: str) -> Dict[str, float]:
 
 # the random streams of a run: initial nets, augmentation, corruption, views
 # and region cells are jax.random's threefry draws (utils/rng.py), dropout
-# a torch generator seeded from its key
-DRAWS = "threefry2x32, jax.random 0.9.0 partitionable; dropout torch"
+# XLA's Philox stream under flax's rbg keys (ops/dropout.py)
+DRAWS = "threefry2x32, jax.random 0.9.0 partitionable; dropout rbg philox4x32-10"
 
 
 def _provenance(dev: torch.device) -> dict:

@@ -27,7 +27,8 @@ features first, in both packages, under the same keys. Layouts converted:
 - Dense kernels: flax ``(I, O)`` -> torch ``(O, I)``.
 
 No JAX import: the inputs are numpy mappings. The walks that map one
-layout to the other also serve :func:`ich_tpu_torch.models.init.init_like_flax`.
+layout to the other also serve :func:`ich_tpu_torch.models.init.init_like_flax`,
+which also gives each Dropout its flax scope path through them.
 """
 
 from __future__ import annotations
@@ -129,6 +130,9 @@ class _Emitter:
         self.sd[f"{tname}.running_var"] = np.asarray(stats["var"])
         self.sd[f"{tname}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
 
+    def dropout(self, fpath: str, tname: str) -> None:
+        """A Dropout's scope (it holds no variables): nothing to convert."""
+
     def gamma(self, fpath: str, tname: str) -> None:
         """A self-attention's residual gate."""
         self.sd[f"{tname}.gamma"] = np.asarray(self._get(self.params, fpath)["gamma"])
@@ -154,6 +158,7 @@ class _Emitter:
         for i in (1, 2):
             self.conv(f"{fprefix}/conv{i}", f"{tprefix}.conv{i}")
             self.norm(f"{fprefix}/bn{i}/norm", f"{tprefix}.bn{i}")
+        self.dropout(f"{fprefix}/Dropout_0", f"{tprefix}.dropout")
 
     def encoder(self) -> None:
         for i in range(self.count("encoder/down_{}", "down_block.{}")):

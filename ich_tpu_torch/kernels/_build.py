@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` source under ``ich_tpu_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` process a source, all started
+together, and linked into one shared library with a plain C interface,
 loaded with :mod:`ctypes`. The library goes to ``build/ich_tpu_torch/`` at
 the repository root, named by a hash of the sources, so a changed source
 builds anew and an unchanged one is loaded as is. The build happens at
@@ -25,6 +26,8 @@ from typing import Callable, Optional, Sequence
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ich_tpu_torch"
+# IEEE float arithmetic, no --use_fast_math: the kernels round as their
+# plain versions do
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -54,9 +57,11 @@ def compile_shared(compiler: Callable[[], str], flags: Sequence[str],
     """Compile ``sources`` into one shared library under ``BUILD_DIR``,
     named ``<prefix>_<hash>.so`` by a hash of the flags and the sources,
     unless it exists; return its path. ``compiler()`` gives the compiler's
-    path and is asked only where a build is needed. The compiler's output
-    is kept beside the library as ``<lib>.log``; a failed compile raises
-    ``RuntimeError``."""
+    path and is asked only where a build is needed. Each source compiles
+    to an object in its own process, all at once (``flags`` less
+    ``-shared``, plus ``-c``), and one more run links them. The compilers'
+    output is kept beside the library as ``<lib>.log``; a failed compile
+    raises ``RuntimeError``."""
     h = hashlib.sha256(" ".join((*flags, *libs)).encode())
     for p in sources:
         h.update(p.name.encode())
@@ -66,17 +71,37 @@ def compile_shared(compiler: Callable[[], str], flags: Sequence[str],
         return out
     cc = compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [cc, *flags, *map(str, sources), "-o", tmp, *libs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"{os.path.basename(cc)} failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    Path(f"{out}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{i}_{p.stem}.o") for i, p in enumerate(sources)]
+        obj_flags = [f for f in flags if f != "-shared"]
+        log = _run_all([[cc, *obj_flags, "-c", str(p), "-o", o]
+                        for p, o in zip(sources, objs)], timeout)
+        tmp = Path(work) / "lib.so"
+        log += _run_all([[cc, *flags, *objs, "-o", str(tmp), *libs]], timeout)
+        Path(f"{out}.log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def _run_all(cmds: Sequence[Sequence[str]], timeout: Optional[float]) -> str:
+    """Run the commands at once; their output, or ``RuntimeError`` naming
+    the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{se}")
+    return "".join(so + se for so, se in outs)
 
 
 def build() -> Path:
@@ -91,12 +116,14 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        u32, u64, f32 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_float
         signatures = {
             "edt_max_n": [],
             "edt_envelope_rows": [ptr, ptr, i32, i32, ptr],
             "edt_mask_rows": [ptr, ptr, i32, i32, ptr],
             "edt_envelope_cols_sqrt": [ptr, i32, i32, i32, ptr],
+            "keyed_dropout": [ptr, ptr, i32, *[i64] * 6, *[u32] * 3, u64, f32, f32, ptr],
         }
         for name, args in signatures.items():
             fn = getattr(lib, name)

@@ -21,6 +21,13 @@ Each random variable's key is flax's (``flax/core/scope.py``,
 SHA-1 of the scope's path names followed by its ``make_rng`` counter
 (``flax_fix_rng_separator`` off, flax 0.12.3's default). Draws run on the
 device of the module's parameters.
+
+The walk also gives each :class:`ich_tpu_torch.models.layers.Dropout` the
+scope path of its flax counterpart (``.../down_{i}/Dropout_0``) and the
+word flax folds into the ``dropout`` collection's ``rbg`` key for it (the
+same SHA-1 with the scope's first ``make_rng`` counter), and
+:func:`ich_tpu_torch.models.layers.set_dropout_keys` gives it the step's
+dropout key.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn as nn
 
 from ich_tpu_torch.interop.from_jax import _Emitter, conv_weight
+from ich_tpu_torch.models.layers import Dropout
 from ich_tpu_torch.utils import rng
 
 # stddev of a standard normal truncated to (-2, 2) (jax.nn.initializers)
@@ -67,6 +75,7 @@ class _InitEmitter(_Emitter):
     module: structure read from its ``state_dict`` keys, variables drawn."""
 
     def __init__(self, module: nn.Module, key: torch.Tensor):
+        self.module = module
         self.tensors = module.state_dict(keep_vars=True)
         self.keys = set(self.tensors)
         self.key = torch.as_tensor(key)
@@ -110,6 +119,14 @@ class _InitEmitter(_Emitter):
 
     def gamma(self, fpath: str, tname: str) -> None:
         self._fill(f"{tname}.gamma", 0.0)
+
+    def dropout(self, fpath: str, tname: str) -> None:
+        # a block without dropout holds an nn.Identity, as the JAX block
+        # holds no Dropout scope
+        m = self.module.get_submodule(tname)
+        if isinstance(m, Dropout):
+            m.flax_path = tuple(fpath.split("/"))
+            m.fold = flax_fold(m.flax_path, 1)
 
     def spectral(self, fpath: str, tname: str) -> None:
         # flax's SpectralNorm draws u with the first make_rng("params") of

@@ -20,20 +20,24 @@ constructor draws every conv, transposed-conv and dense kernel as flax's
 (:func:`ich_tpu_torch.models.init.init_like_flax`), and the layers here
 start at zero until it does, drawing nothing from torch's generator;
 BatchNorm's running variance takes the biased batch variance; dropout
-draws its mask from a generator that the trainer sets for each step, so
-that a resumed run replays the uninterrupted one.
+draws flax's mask: XLA's Philox stream under the key that flax derives
+from the step's dropout key, which the trainer sets
+(:func:`set_dropout_keys`), and the module's
+path, so that a resumed run replays the uninterrupted one and world N
+draws world 1's masks.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ich_tpu_torch.ops.dropout import keyed_dropout
 from ich_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -198,26 +202,60 @@ class BatchNorm3d(nn.BatchNorm3d):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout (flax's ``nn.Dropout``: keep with probability
-    ``1 - p`` and scale by ``1 / (1 - p)``) whose mask comes from
-    ``self.generator``; the trainer sets one seeded generator per step
-    (``None`` draws from torch's default generator)."""
+    """flax's ``nn.Dropout(p)`` in train mode (:func:`ich_tpu_torch.ops.
+    dropout.keyed_dropout`): keep where XLA's Philox stream under flax's
+    key of this Dropout says so, and divide by ``1 - p``.
+
+    ``flax_path`` is the scope path of the JAX net's Dropout at this place
+    and ``fold`` its SHA-1 word, set by the family's walk
+    (``init_like_flax``); ``key`` is the step's dropout key (two threefry
+    words) and ``shard`` this rank's index in the global batch, both set by
+    :func:`set_dropout_keys`. A rank draws the
+    stream from ``shard * x.numel()``: its rows of the global batch's mask.
+    Without a key (a net run in train mode outside a trainer's step) each
+    call draws its key from torch's generator, as ``nn.Dropout`` draws its
+    mask."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
-        self.generator: torch.Generator | None = None
+        self.flax_path: Tuple[str, ...] | None = None
+        self.fold = 0
+        self.key: Tuple[int, int] | None = None
+        self.shard = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = 1.0 - self.p
+        key = self.key
+        if key is None:
+            key = tuple(torch.randint(0, 1 << 32, (2,), dtype=torch.int64).tolist())
         with torch.profiler.record_function("dropout"):
-            mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
-            return x * mask.div_(keep)
+            return keyed_dropout(x, (*key, self.fold), self.p, self.shard * x.numel())
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def set_dropout_keys(net: nn.Module, key: Optional[torch.Tensor], mesh=None) -> None:
+    """Give every Dropout of ``net`` the step's dropout key ``key`` (a
+    threefry key), from which it draws the masks of flax's ``net.apply(...,
+    rngs={"dropout": dropout_key(key)})``: ``fold_in`` of that ``rbg`` key
+    with its ``fold`` word (:func:`ich_tpu_torch.ops.dropout.
+    flax_dropout_key`, in the kernel on the card). Under ``mesh`` this rank
+    draws its rows of the global batch's masks. ``key`` None clears the
+    keys."""
+    words = None if key is None else tuple(
+        int(w) & 0xFFFFFFFF for w in torch.as_tensor(key).reshape(2).tolist())
+    shard = 0 if mesh is None else mesh.rank
+    for m in net.modules():  # not named_modules: this runs every step
+        if not isinstance(m, Dropout):
+            continue
+        if words is not None and m.flax_path is None:
+            name = next(n for n, x in net.named_modules() if x is m)
+            raise ValueError(f"set_dropout_keys: Dropout {name!r} has no flax path "
+                             "(its family's walk does not reach it)")
+        m.key, m.shard = words, shard
 
 
 _CONV = {2: Conv2d, 3: Conv3d}
@@ -261,10 +299,11 @@ class ConvBlock(nn.Module):
     ``remat``: while gradients are recorded, the block runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept and
     its activations are recomputed in the backward pass, as the JAX
-    package's ``nn.remat``. The recompute replays the forward's dropout
-    draws (it restores the dropout generator's state, which
-    ``preserve_rng_state`` does not cover) and leaves BatchNorm's running
-    averages alone (they were updated once, in the forward)."""
+    package's ``nn.remat``. The recompute draws the forward's dropout masks
+    again (they are a function of the key; a keyless Dropout's key comes
+    from torch's generator, whose state the checkpoint restores) and leaves
+    BatchNorm's running averages alone (they were updated once, in the
+    forward)."""
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: int | None = None,
                  ndim: int = 2, p_dropout: float = 0.0, norm: str = "batch",
@@ -300,28 +339,7 @@ class ConvBlock(nn.Module):
 
     def _remat_contexts(self):
         """The (forward, recompute) contexts of one checkpointed call."""
-        gen = getattr(self.dropout, "generator", None)
-        saved = {}
-
-        @contextlib.contextmanager
-        def forward():
-            if gen is not None:
-                saved["gen"] = gen.get_state()
-            yield
-
-        @contextlib.contextmanager
-        def recompute():
-            if gen is not None:
-                after = gen.get_state()
-                gen.set_state(saved["gen"])
-            try:
-                with stats_frozen(self):
-                    yield
-            finally:
-                if gen is not None:
-                    gen.set_state(after)
-
-        return forward(), recompute()
+        return contextlib.nullcontext(), stats_frozen(self)
 
 
 def max_pool(x: torch.Tensor, ndim: int) -> torch.Tensor:

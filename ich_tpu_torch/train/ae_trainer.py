@@ -25,7 +25,8 @@ import torch.nn as nn
 from ich_tpu_torch.data.core import batch_indices
 from ich_tpu_torch.data.png import save_png_gray
 from ich_tpu_torch.ops.losses import gdl_loss, l1_loss, mse_loss
-from ich_tpu_torch.train.segmentation2d import _set_dropout_generator, eval_mode
+from ich_tpu_torch.models.layers import set_dropout_keys
+from ich_tpu_torch.train.segmentation2d import eval_mode
 from ich_tpu_torch.train.ssl import _nhwc, _SSLBase
 from ich_tpu_torch.train.state import TrainState
 from ich_tpu_torch.utils.config import TRAINERS
@@ -67,10 +68,10 @@ class AE(_SSLBase):
             logger.info("Lambda GDL set to %s.", v)
 
     def _step(self, state: TrainState, images: torch.Tensor, key: torch.Tensor):
-        """One step; dropout's masks from ``key``'s generator, the
-        counterpart of the JAX step's ``dropout_key(key)``."""
+        """One step; dropout's masks from ``key``, as the JAX step's
+        ``dropout_key(key)`` (``AENet`` has no Dropout: a no-op, as there)."""
         images = _nhwc(images)
-        _set_dropout_generator(state.model, self._dropout_generator(key))
+        set_dropout_keys(state.model, key, self.mesh)
         with torch.profiler.record_function("net"):
             rec = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):

@@ -16,7 +16,8 @@ of epoch ``e`` is the (e+1)-th of ``np.random.default_rng(seed)``, replayed
 on a resume, so a resumed run is bit-equal to a straight one. Each step
 splits its key as the JAX step does, ``ak, dk = split(key)``: the
 augmentation (``augment_fn(ak, images)`` on (B, H, W, 1) batches) draws the
-JAX package's parameters, and ``dk`` seeds dropout's torch generator.
+JAX package's parameters, and ``dk`` keys dropout's masks, which equal
+the JAX package's.
 
 ``evaluate`` scores every slice on the device and computes the metrics of
 :mod:`ich_tpu_torch.ops.metrics` (scikit-learn's, without scikit-learn);
@@ -39,7 +40,8 @@ from ich_tpu_torch.data.core import batch_indices
 from ich_tpu_torch.ops.losses import softmax_cross_entropy, weighted_bce_with_logits
 from ich_tpu_torch.ops.metrics import classification_metrics, multilabel_metrics
 from ich_tpu_torch.train.loop import fit
-from ich_tpu_torch.train.segmentation2d import _set_dropout_generator, eval_mode
+from ich_tpu_torch.models.layers import set_dropout_keys
+from ich_tpu_torch.train.segmentation2d import eval_mode
 from ich_tpu_torch.train.ssl import _nhwc, _SSLBase
 from ich_tpu_torch.train.state import TrainState
 from ich_tpu_torch.utils import rng
@@ -81,7 +83,7 @@ class _ClassifierBase(_SSLBase):
         if self.augment_fn is not None:
             with torch.profiler.record_function("augment"):
                 images = self.augment_fn(ak, images)
-        _set_dropout_generator(state.model, self._dropout_generator(dk))
+        set_dropout_keys(state.model, dk, self.mesh)
         with torch.profiler.record_function("net"):
             logits = state.model(images.movedim(-1, 1))
         with torch.profiler.record_function("loss"):
@@ -134,7 +136,7 @@ class _ClassifierBase(_SSLBase):
             )
         finally:
             self.net.eval()
-            _set_dropout_generator(self.net, None)
+            set_dropout_keys(self.net, None)
         self.outputs["train"]["time"] = wall
         self.outputs["train"]["evolution"] = history
 

@@ -6,9 +6,9 @@
 batches are gathered on the device from a ``device_cache``d dataset, and
 each step augments on the device, runs the net in train mode, takes the
 loss, backward and an Adam step. The step's key (``fit``'s, as the JAX
-loop folds it) splits into the augmentation's key, whose draws equal the
-JAX package's, and dropout's, which seeds a torch generator (dropout's
-masks are the port's own stream). ``evaluate`` counts each
+loop folds it) splits into the augmentation's key and dropout's, whose
+draws equal the JAX package's (dropout's masks are flax's, drawn by the
+keyed dropout kernel). ``evaluate`` counts each
 slice's TN/FP/FN/TP on the device and writes the JAX package's CSVs (the
 columns, index and row order of pandas' ``to_csv``) and ``<vol>/<slice>.bmp``
 predictions. The net is in eval mode except while it trains.
@@ -24,11 +24,11 @@ With ``mesh=`` (an :class:`ich_tpu_torch.parallel.Mesh`) the trainer is
 data-parallel as the JAX package's jit-sharded one is: every rank holds
 the replicated net, replays the same host plan and gathers each global
 batch on its device, draws the augmentation for the global batch from the
-step's key and keeps its slice (so world N computes world 1's step
-with dropout off), normalises with the global batch's BatchNorm statistics
-and averages the gradients before Adam; ``batch_size`` is the global
-batch. Dropout draws from a generator seeded by the dropout key with the
-rank folded in. ``evaluate`` runs on every rank and only rank 0 writes files; with
+step's key and keeps its slice, draws its rows of the global batch's
+dropout masks, normalises with the global batch's BatchNorm statistics
+and averages the gradients before Adam, so world N computes world 1's
+step; ``batch_size`` is the global batch. ``evaluate`` runs on every rank
+and only rank 0 writes files; with
 more than one rank, ``segment_volumes`` of same-shaped volumes runs one
 volume per rank (:func:`ich_tpu_torch.parallel.volume_parallel_map`).
 """
@@ -51,7 +51,7 @@ from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.bmp import save_bmp_gray
 from ich_tpu_torch.data.table import write_csv
 from ich_tpu_torch.data.core import SliceDataset2D, batch_indices
-from ich_tpu_torch.models.layers import Dropout, sync_batch_norm
+from ich_tpu_torch.models.layers import set_dropout_keys, sync_batch_norm
 from ich_tpu_torch.ops import ct
 from ich_tpu_torch.ops import losses as _losses  # noqa: F401  (registers LOSSES)
 from ich_tpu_torch.ops.metrics import batch_binary_confusion_matrix, dice_from_counts
@@ -110,12 +110,6 @@ def data_parallel(net: nn.Module, mesh) -> nn.Module:
     if mesh is not None:
         sync_batch_norm(replicate(net, mesh), mesh)
     return net
-
-
-def _set_dropout_generator(net: nn.Module, gen: Optional[torch.Generator]) -> None:
-    for m in net.modules():
-        if isinstance(m, Dropout):
-            m.generator = gen
 
 
 def volume_table(cols: Dict[str, Sequence], sums: Sequence[str]) -> Tuple[np.ndarray, dict]:
@@ -242,14 +236,6 @@ class UNet2D:
             for idx in plan:
                 yield self._to_device(images[idx]), self._to_device(masks[idx])
 
-    def _dropout_generator(self, key: torch.Tensor) -> torch.Generator:
-        """Dropout's generator on the device, seeded from its key
-        (:func:`ich_tpu_torch.utils.rng.torch_generator`); under a mesh with
-        the rank folded in, so that each rank's slice draws its own masks."""
-        if self.mesh is not None:
-            key = rng.fold_in(key, self.mesh.rank)
-        return rng.torch_generator(key, self.device)
-
     def _train_step(self, state: TrainState, batch, key: torch.Tensor) -> torch.Tensor:
         return self._step(state, *batch, key)
 
@@ -262,12 +248,12 @@ class UNet2D:
         augment = None
         if self.augment_fn is not None:
             augment = lambda im, mk: self.augment_fn(aug_key, im, mk)  # noqa: E731
-        return self._update(state, images, masks, augment, self._dropout_generator(drop_key))
+        return self._update(state, images, masks, augment, drop_key)
 
     def _update(self, state: TrainState, images: torch.Tensor, masks: torch.Tensor,
-                augment: Optional[Callable], dropout: torch.Generator) -> torch.Tensor:
+                augment: Optional[Callable], drop_key: torch.Tensor) -> torch.Tensor:
         """One step on a (B, *spatial[, 1]) batch: the channel axis added,
-        ``augment(images, masks)``, dropout drawn from ``dropout``, the net
+        ``augment(images, masks)``, dropout drawn from ``drop_key``, the net
         in its current mode (channels moved first for it and back), the
         loss, backward and Adam; returns the loss. Under a mesh the batch
         is the global one: it is augmented whole, then this rank keeps its
@@ -279,7 +265,7 @@ class UNet2D:
                 images, masks = augment(images, masks)
         if self.mesh is not None:
             images, masks = shard_batch((images, masks), self.mesh)
-        _set_dropout_generator(state.model, dropout)
+        set_dropout_keys(state.model, drop_key, self.mesh)
         pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
             loss = self.loss(pred, masks)
@@ -341,7 +327,7 @@ class UNet2D:
             )
         finally:
             self.unet.eval()
-            _set_dropout_generator(self.unet, None)
+            set_dropout_keys(self.unet, None)
         self.outputs["train"]["time"] = wall
         self.outputs["train"]["evolution"] = history
 

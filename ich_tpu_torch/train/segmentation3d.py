@@ -23,8 +23,8 @@ before they fetch the oldest result.
 
 With ``mesh=`` the trainer is data-parallel as :class:`UNet2D` is: every
 rank draws the global batch's patches from the same draws (both samplers),
-augments them whole and keeps its slice, and draws its dropout with its
-rank folded into the key; the GroupNorm net needs no statistics sync.
+augments them whole and keeps its slice, and draws its rows of the
+global batch's dropout masks; the GroupNorm net needs no statistics sync.
 With more than one rank, ``segment_volumes`` of same-shaped volumes runs
 one volume per rank through :func:`ich_tpu_torch.parallel.
 volume_parallel_map`, each through the serial path's window, sliding
@@ -53,7 +53,8 @@ from ich_tpu_torch.ops.metrics import (
 )
 from ich_tpu_torch.ops.sliding_window import sliding_window_inference
 from ich_tpu_torch.train.loop import fit
-from ich_tpu_torch.train.segmentation2d import UNet2D, _set_dropout_generator, eval_mode, write_csv
+from ich_tpu_torch.models.layers import set_dropout_keys
+from ich_tpu_torch.train.segmentation2d import UNet2D, eval_mode, write_csv
 from ich_tpu_torch.utils import rng
 from ich_tpu_torch.utils.config import TRAINERS
 from ich_tpu_torch.utils.pipeline import fetch_pipelined
@@ -248,7 +249,7 @@ class UNet3D(UNet2D):
             )
         finally:
             self.unet.eval()
-            _set_dropout_generator(self.unet, None)
+            set_dropout_keys(self.unet, None)
         self.outputs["train"]["time"] = wall
         self.outputs["train"]["evolution"] = history
 

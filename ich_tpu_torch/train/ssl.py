@@ -14,11 +14,10 @@ Each step splits its key (``fit``'s, as the JAX loop folds it) as the JAX
 train step does: ``ck, dk = split(key)`` for the corruption and dropout;
 or ``k1, k2, kd1, kd2, kr = split(key, 5)`` for view 1, view 2, dropout of
 the first forward, of the second, and the region cells. The corruption,
-views and cells equal the JAX package's draws; each dropout key seeds a
-torch generator (dropout's masks are the port's own stream). The AE and
-FCDD trainers built on this base take the step's key too: the AE seeds
-dropout's generator from it, FCDD draws its ellipses and corruption flags
-from ``ka, kp = split(key)``. The two forwards of a
+views, cells and dropout masks equal the JAX package's draws. The AE and
+FCDD trainers built on this base take the step's key too: the AE keys
+dropout with it, FCDD draws its ellipses and corruption flags from
+``ka, kp = split(key)``. The two forwards of a
 contrastive step run in train mode one after the other, so the second
 starts from the running statistics the first updated, as in the JAX
 package. Epochs drop the last partial batch (``n // batch_size`` steps);
@@ -59,6 +58,7 @@ import torch
 import torch.nn as nn
 
 from ich_tpu_torch.data.core import batch_indices
+from ich_tpu_torch.models.layers import set_dropout_keys
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops.losses import (
     info_nce_loss,
@@ -71,7 +71,6 @@ from ich_tpu_torch.train.loop import fit
 from ich_tpu_torch.parallel.mesh import shard_batch
 from ich_tpu_torch.train.segmentation2d import (
     UNet2D,
-    _set_dropout_generator,
     data_parallel,
     eval_mode,
     resolve_device,
@@ -188,7 +187,6 @@ class _SSLBase:
 
     # the supervised trainer's helpers, which read only ``self.device`` and
     # ``self.mesh``
-    _dropout_generator = UNet2D._dropout_generator
     _to_device = UNet2D._to_device
     _writes = UNet2D._writes
 
@@ -274,7 +272,7 @@ class _SSLBase:
             )
         finally:
             self.net.eval()
-            _set_dropout_generator(self.net, None)
+            set_dropout_keys(self.net, None)
         self.outputs["train"]["time"] = wall
         self.outputs["train"]["evolution"] = history
 
@@ -347,7 +345,7 @@ class ContextRestoration(_SSLBase):
         with torch.profiler.record_function("corrupt"):
             corrupted = self.corrupt(ck, images)
         corrupted, images = self._local(corrupted, images)
-        _set_dropout_generator(state.model, self._dropout_generator(dk))
+        set_dropout_keys(state.model, dk, self.mesh)
         with torch.profiler.record_function("net"):
             recon = state.model(corrupted.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
@@ -389,9 +387,9 @@ class Contrastive(_SSLBase):
             v2 = self.aug(k2, images)
         v1, v2 = self._local(v1, v2)
         with torch.profiler.record_function("net"):
-            _set_dropout_generator(state.model, self._dropout_generator(kd1))
+            set_dropout_keys(state.model, kd1, self.mesh)
             o1 = state.model(v1.movedim(-1, 1))
-            _set_dropout_generator(state.model, self._dropout_generator(kd2))
+            set_dropout_keys(state.model, kd2, self.mesh)
             o2 = state.model(v2.movedim(-1, 1))
         with torch.profiler.record_function("loss"):
             if self.is_global:

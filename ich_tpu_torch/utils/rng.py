@@ -26,10 +26,12 @@ a train step's per-sample draws from adding launches, and as int64 torch
 ops masked to 32 bits on ``device`` when it is large (the initial weights
 of a net built there).
 
-Dropout is the one stream that does not follow JAX: the JAX package moves
-it to XLA's ``rbg`` generator, which depends on the platform. Its
-counterpart is :func:`torch_generator`, a torch generator seeded from the
-key's bits.
+Dropout draws from the ``rbg`` key that the JAX package derives from the
+step's key (:func:`rbg_key`, :func:`rbg_fold_in`): ``jax.random.bits`` on
+such a key is XLA's ``rng_bit_generator`` with its DEFAULT algorithm,
+which XLA's CPU and GPU backends expand as Philox4x32-10
+(:func:`philox_bits`, after XLA's ``lib/prng.cc``). A TPU draws
+its own bits there; the port follows the CPU's.
 
 jax.random is Apache-2.0; each algorithm copied from it names its source.
 """
@@ -372,11 +374,103 @@ def per_sample_keys(key: torch.Tensor, sample_ids) -> torch.Tensor:
     return fold_in(key, np.asarray(sample_ids, dtype=np.int64))
 
 
-def torch_generator(key: torch.Tensor, device=None) -> torch.Generator:
-    """A torch generator on ``device`` seeded with the key's 64 bits: the
-    counterpart of ``ich_tpu.utils.rng.dropout_key`` (dropout's stream is
-    the port's own)."""
-    k0, k1 = (int(v) & _MASK for v in torch.as_tensor(key).reshape(2).tolist())
-    gen = torch.Generator(device=torch.device("cpu") if device is None else device)
-    gen.manual_seed((k0 << 32) | k1)
-    return gen
+# XLA's Philox4x32-10 (its lib/prng.cc): the round multipliers
+# and the key's increments between rounds
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _threefry_int(k0: int, k1: int, x0: int, x1: int) -> Tuple[int, int]:
+    """threefry2x32 of one counter under one key in Python ints: some ten
+    microseconds, where a numpy call on one word costs some hundred."""
+    return _threefry(k0, k1, x0, x1, lambda v: v & _MASK)
+
+
+def rbg_key(key: torch.Tensor) -> Tuple[int, int, int, int]:
+    """The ``rbg`` key that ``ich_tpu.utils.rng.dropout_key`` makes of a
+    threefry key: ``jax.random.bits(key, (4,), uint32)``, four words (the
+    counters ``(0, i)``, as :func:`random_bits` draws them)."""
+    k0, k1 = (int(w) & _MASK for w in torch.as_tensor(key).reshape(2).tolist())
+    return tuple(a ^ b for a, b in (_threefry_int(k0, k1, 0, i) for i in range(4)))
+
+
+def rbg_fold_in(key: Sequence[int], data: int) -> Tuple[int, int, int, int]:
+    """``jax.random.fold_in`` of an ``rbg`` key (``_rbg_fold_in``,
+    ``jax/_src/prng.py``): threefry's ``fold_in`` on each two-word half."""
+    d = int(data) & _MASK
+    return (*_threefry_int(key[0], key[1], 0, d), *_threefry_int(key[2], key[3], 0, d))
+
+
+def _philox_rounds(k0, k1, c, mulhilo, wrap):
+    """Ten Philox4x32 rounds of the counter words ``c`` (four arrays) under
+    the key ``(k0, k1)``; ``mulhilo(a, m)`` gives the high and low words of
+    ``a * m``."""
+    c0, c1, c2, c3 = c
+    for _ in range(10):
+        hi0, lo0 = mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = wrap(k0 + PHILOX_W[0]), wrap(k1 + PHILOX_W[1])
+    return c0, c1, c2, c3
+
+
+def _philox_host(key: Sequence[int], first: int, blocks: int) -> np.ndarray:
+    """Blocks ``first .. first + blocks - 1`` of the stream as numpy
+    uint32, ``(blocks, 4)``."""
+    i = np.arange(blocks, dtype=np.uint64) + np.uint64(first)
+    base = key[2] | (key[3] << 32)
+    lo = i + np.uint64(base)  # the 128-bit counter's low half, wrapping
+    carry = (lo < i).astype(np.uint64)
+    hi = np.uint64(key[0] | (key[1] << 32)) + carry
+    c = tuple(w & np.uint64(_MASK) for w in (lo, lo >> np.uint64(32), hi, hi >> np.uint64(32)))
+
+    def mulhilo(a, m):
+        p = a * np.uint64(m)
+        return p >> np.uint64(32), p & np.uint64(_MASK)
+
+    out = _philox_rounds(np.uint64(key[0]), np.uint64(key[1]), c, mulhilo,
+                         lambda v: v & np.uint64(_MASK))
+    return np.stack(out, axis=-1).astype(np.uint32)
+
+
+def _philox_device(key: Sequence[int], first: int, blocks: int, device) -> torch.Tensor:
+    """The same blocks as int64 torch ops masked to 32 bits on ``device``.
+    A 32x32-bit product overflows a signed int64 and wraps: its high word
+    is masked after the shift."""
+    i = torch.arange(blocks, dtype=torch.int64, device=device) + first
+    w0 = i & _MASK
+    w0 = w0 + key[2]
+    w1 = (i >> 32) + key[3] + (w0 >> 32)
+    w2 = key[0] + (w1 >> 32)
+    w3 = key[1] + (w2 >> 32)
+    c = tuple(w & _MASK for w in (w0, w1, w2, w3))
+
+    def mulhilo(a, m):
+        p = a * m
+        return (p >> 32) & _MASK, p & _MASK
+
+    out = _philox_rounds(key[0], key[1], c, mulhilo, lambda v: v & _MASK)
+    return torch.stack(out, dim=-1)
+
+
+def philox_bits(key: Sequence[int], n: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Words ``offset .. offset + n - 1`` of ``jax.random.bits`` on the
+    ``rbg`` key ``key`` (four words), as XLA's CPU backend draws them: int64
+    of uint32 values, flat, on ``device``.
+
+    The stream is Philox4x32-10 under the key ``(k0, k1)``; block ``i``
+    encrypts the 128-bit counter ``C + i``, where ``C`` holds the words
+    ``(k2, k3, k0, k1)`` from low to high (the u64[2] state reversed), and
+    word ``j`` of a tensor's flat order is word ``j % 4`` of block
+    ``j // 4``. For the CPU, and up to ``HOST_WORDS`` words for a card, it
+    runs on the host in numpy (some 15x faster there than int64 torch
+    ops); more words for a card run as torch ops on the card."""
+    key = tuple(int(k) & _MASK for k in key)
+    device = torch.device("cpu") if device is None else torch.device(device)
+    first, last = offset // 4, (offset + n + 3) // 4
+    if n <= HOST_WORDS or device.type == "cpu":
+        words = _philox_host(key, first, last - first).reshape(-1)
+        words = torch.from_numpy(words.astype(np.int64))
+        return to_device(words[offset % 4:offset % 4 + n], device)
+    words = _philox_device(key, first, last - first, device).reshape(-1)
+    return words[offset % 4:offset % 4 + n]

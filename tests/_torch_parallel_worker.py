@@ -170,6 +170,26 @@ def case_unet2d(mesh, inp, out):
         out[f"unet2d_{norm}/loss"] = np.concatenate([first, _history(t)])
 
 
+def case_unet2d_dropout(mesh, inp, out):
+    """``case_unet2d``'s BatchNorm run at dropout 0.5, with the first
+    block's mask of the first step gathered over the ranks."""
+    data = synthetic_ich_slices(**UNET2D_DATA).device_cache("cpu")
+    net = UNet(p_dropout=0.5, norm="batch", **UNET2D_NET)
+    net.load_state_dict(torch.load(os.path.join(inp["_dir"], "unet2d_batch.pt")))
+    masks = []
+    hook = net.down_block[0].dropout.register_forward_hook(
+        lambda m, args, y: masks.append((y.detach() != 0).to(torch.float32)))
+    t = UNet2D(net, mesh=mesh, **{**UNET2D_TRAIN, "n_epoch": 1})
+    t.train(data)
+    hook.remove()
+    out["unet2d_drop/mask"] = _np(parallel.all_gather(masks[0], mesh))
+    first = _history(t)
+    out.update(_state(t.unet, "unet2d_drop/step1"))
+    t.n_epoch = 2
+    t.train(data)
+    out["unet2d_drop/loss"] = np.concatenate([first, _history(t)])
+
+
 def _volumes3d():
     rng = np.random.default_rng(0)
     vols, masks = [], []
@@ -387,7 +407,7 @@ def case_resume(mesh, inp, out):
 
 
 CASES = (case_sliding_window, case_volume_parallel, case_info_nce, case_batch_norm,
-         case_unet2d, case_unet3d, case_ssl, case_dcp, case_resume, case_segment)
+         case_unet2d, case_unet2d_dropout, case_unet3d, case_ssl, case_dcp, case_resume, case_segment)
 
 
 def main() -> None:

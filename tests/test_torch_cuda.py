@@ -14,7 +14,8 @@ from ich_tpu_torch.data.patch_sampler import DevicePatchSampler
 from ich_tpu_torch.data.synthetic import synthetic_ich_slices, synthetic_rsna_slices
 from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import PartialUNet, UNet, UNetEncoder
-from ich_tpu_torch.ops import edt
+from ich_tpu_torch.models.layers import set_dropout_keys
+from ich_tpu_torch.ops import dropout, edt
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
@@ -85,6 +86,50 @@ def test_kernels_reject_long_lines_before_launch(card):
 def test_kernel_rejects_non_contiguous(card):
     with pytest.raises(ValueError):
         edt.edt_pass_1d(torch.zeros(8, 16, device="cuda").t())
+
+
+# the five shapes of configs/unet2d.json's dropout at batch 4 (C, H, W),
+# a ragged shape, and the 3D net's bf16 layout
+DROPOUT_SHAPES = [(4, 32, 256, 256), (4, 64, 128, 128), (4, 128, 64, 64), (4, 256, 32, 32),
+                  (4, 512, 16, 16), (3, 5, 7, 9), (2, 16, 8, 16, 16)]
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("offset", [0, 4, 6])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+def test_keyed_dropout_kernel_matches_plain_on_card(card, shape, offset, channels_last):
+    """The kernel ``torch.equal`` to its plain version on the same tensor
+    in NCHW and channels-last storage (float32; bf16 for the 5-D shape),
+    one launch each, at offsets that start mid-block."""
+    dtype = torch.bfloat16 if len(shape) == 5 else torch.float32
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).standard_normal(shape)
+                         .astype(np.float32)).to("cuda", dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last if x.dim() == 4
+                         else torch.channels_last_3d)
+    key = (*prng.prng_key(offset + 1).tolist(), 0x9E3779B9)
+    for rate in (0.5, 0.1):
+        before = dropout.launches
+        got = dropout.keyed_dropout(x, key, rate, offset)
+        torch.cuda.synchronize()
+        assert dropout.launches == before + 1
+        assert got.stride() == x.stride()
+        assert torch.equal(got, dropout.keyed_dropout_plain(x, key, rate, offset))
+
+
+def test_keyed_dropout_backward_on_card(card):
+    """The gradient is the kernel on the gradient: the same mask, ``g /
+    keep``; a second launch, no saved mask."""
+    x = torch.randn(2, 8, 16, 16, device="cuda", requires_grad=True)
+    g = torch.randn(2, 8, 16, 16, device="cuda")
+    key = (*prng.prng_key(5).tolist(), 7)
+    before = dropout.launches
+    y = dropout.keyed_dropout(x, key, 0.3)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert dropout.launches == before + 2
+    assert torch.equal(x.grad, dropout.keyed_dropout_plain(g, key, 0.3))
+    assert torch.equal(x.grad != 0, y != 0)
 
 
 def test_segment_volume_card_matches_cpu(card):
@@ -227,8 +272,8 @@ def test_train_steps_3d_card_match_cpu(card):
 
 @pytest.mark.parametrize("norm", ["group", "batch"])
 def test_remat_matches_plain_on_card(card, norm):
-    """``remat=True`` with dropout 0.3 on the card: the recompute replays
-    the card generator's dropout draws and skips BatchNorm's second running
+    """``remat=True`` with dropout 0.3 on the card: the recompute draws the
+    same keyed dropout masks and skips BatchNorm's second running
     update, so the gradient (all parameters together: the biases of convs
     feeding a BatchNorm have rounding-noise gradients) is within rel L2 1e-5
     of the plain net's and the running statistics within rtol 1e-5 (cuDNN's
@@ -241,10 +286,7 @@ def test_remat_matches_plain_on_card(card, norm):
         torch.manual_seed(0)
         net = UNet(depth=3, ndim=3, top_filter=8, norm=norm, p_dropout=0.3,
                    remat=remat).cuda().train()
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        for m in net.modules():
-            if hasattr(m, "generator"):
-                m.generator = gen
+        set_dropout_keys(net, prng.prng_key(1))
         net(x).square().mean().backward()
         nets[remat] = net
     a, b = (torch.cat([p.grad.flatten() for p in nets[r].parameters()]) for r in (False, True))

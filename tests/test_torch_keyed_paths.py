@@ -16,8 +16,8 @@ the device patch sampler are held in ``test_torch_transforms3d.py`` and
   the host and on the chunked large-draw path; ``detect`` with W1 and one
   inpainter gives every pass's distance map within 1e-5 relative and the
   same final mask;
-- the 3D trainer's step: ``UNet2D``'s, its dropout generator seeded from
-  the key with the rank folded in under a mesh;
+- the 3D trainer's step: ``UNet2D``'s, its dropout keyed as flax keys it,
+  a rank under a mesh drawing its rows of the global mask;
 - the chip script's known answers for these draws (``chip_smoke.RNG_KNOWN``)
   recomputed with JAX."""
 
@@ -33,6 +33,9 @@ from ich_tpu_torch.models.fcdd import FCDD_CNN_VGG
 from ich_tpu_torch.ops import masks as M
 from ich_tpu_torch.train import inpaint_ad as ad
 from ich_tpu_torch.train.fcdd_trainer import FCDD
+from ich_tpu_torch.models.layers import Dropout, set_dropout_keys
+from ich_tpu_torch.models.unet import UNet
+from ich_tpu_torch.ops.dropout import keyed_dropout
 from ich_tpu_torch.train.segmentation2d import UNet2D
 from ich_tpu_torch.train.segmentation3d import UNet3D
 from ich_tpu_torch.utils import rng
@@ -200,24 +203,33 @@ class _Mesh:
         self.rank = rank
 
 
-def test_3d_step_is_the_2d_step_and_its_dropout_folds_the_rank():
+def test_3d_step_is_the_2d_step_and_its_dropout_shards_the_stream():
     """``UNet3D`` runs ``UNet2D``'s step (``aug_key, drop_key =
-    split(key)``); its dropout generator is ``torch_generator(key)``, or
-    ``torch_generator(fold_in(key, rank))`` on a mesh."""
+    split(key)``); every Dropout takes ``drop_key`` and its own flax fold
+    word, the same on a mesh, where rank r draws the stream from ``r``
+    times its slice's size: rows ``r`` of the global batch's mask."""
     assert UNet3D._step is UNet2D._step
-    t = UNet3D.__new__(UNet3D)
-    t.device = torch.device("cpu")
+    net = UNet(depth=2, ndim=3, top_filter=4, norm="group", p_dropout=0.5).train()
     key = rng.prng_key(8)
-
-    def draws(gen):
-        return torch.rand(4, generator=gen)
-
-    t.mesh = None
-    assert torch.equal(draws(t._dropout_generator(key)), draws(rng.torch_generator(key)))
-    t.mesh = _Mesh(2)
-    got = draws(t._dropout_generator(key))
-    assert torch.equal(got, draws(rng.torch_generator(rng.fold_in(key, 2))))
-    assert not torch.equal(got, draws(rng.torch_generator(key)))
+    set_dropout_keys(net, key)
+    drops = [m for m in net.modules() if isinstance(m, Dropout)]
+    assert len(drops) == 2 and {m.key for m in drops} == {tuple(key.tolist())}
+    assert len({m.fold for m in drops}) == 2
+    set_dropout_keys(net, key, _Mesh(2))
+    assert {m.key for m in drops} == {tuple(key.tolist())} and {m.shard for m in drops} == {2}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 4, 2, 4, 4))
+                         .astype(np.float32))
+    whole = keyed_dropout(x, (*drops[0].key, drops[0].fold), 0.5)
+    assert torch.equal(drops[0](x[4:6]), whole[4:6])
+    assert not torch.equal(drops[0](x[4:6]), whole[0:2])
+    set_dropout_keys(net, None)
+    assert all(m.key is None for m in drops)
+    # keyless, outside a step: a key from torch's generator, as nn.Dropout
+    outs = []
+    for _ in range(2):
+        torch.manual_seed(3)
+        outs.append(drops[0](x[4:6]))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], whole[4:6])
 
 
 def test_the_chip_path_constants_are_jaxs():

@@ -14,7 +14,9 @@ tests then hold the results:
   gather's loss and gradient, synced BatchNorm against flax's on the global
   batch, and ``UNet2D(mesh=)`` training from carried weights;
 - world N against world 1: ``UNet3D``, ``ContextRestoration``,
-  ``Contrastive`` (global, local, and local with a frozen transfer);
+  ``Contrastive`` (global, local, and local with a frozen transfer), and
+  ``UNet2D`` at dropout 0.5, whose masks are the global batch's rows
+  (against the JAX package's mesh too);
 - the checkpoint and preemption contracts at every world size.
 """
 
@@ -72,10 +74,10 @@ def _inputs():
     }
 
 
-def _jax_unet2d(norm, world=None):
+def _jax_unet2d(norm, world=None, p_dropout=0.0):
     """The JAX trainer of ``case_unet2d`` (a mesh of ``world`` devices),
     its state built from seed 0."""
-    jt = JaxUNet2D(JaxUNet(p_dropout=0.0, norm=norm, **W.UNET2D_NET),
+    jt = JaxUNet2D(JaxUNet(p_dropout=p_dropout, norm=norm, **W.UNET2D_NET),
                    mesh=None if world is None else _jax_mesh(world), **W.UNET2D_TRAIN)
     jt._ensure_state((W.UNET2D_DATA["size"],) * 2, 1)
     return jt
@@ -235,8 +237,13 @@ def test_unet2d_mesh_train_matches_jax(runs, world, norm):
     and the norm subtracts it; a conv bias before BatchNorm has none), and
     Adam's first step moves each weight by about lr times its gradient's
     sign, so such a weight may land 2 lr away; 98% are within lr/10."""
-    res = runs[0][world][0]
-    jt = _jax_unet2d(norm, world)
+    _hold_unet2d_against_jax(runs[0][world][0], f"unet2d_{norm}", _jax_unet2d(norm, world))
+
+
+def _hold_unet2d_against_jax(res, prefix, jt):
+    """``case_unet2d``'s run under ``prefix`` against the JAX trainer
+    ``jt`` driven the same way: losses at rtol 1e-4, the weights after
+    step 1 by :func:`adam_step1_share`, running statistics at 1e-5."""
     jt.n_epoch = 1
     data = jax_synthetic_ich_slices(**W.UNET2D_DATA)
     jt.train(data)
@@ -245,14 +252,33 @@ def test_unet2d_mesh_train_matches_jax(runs, world, norm):
     jt.n_epoch = 2
     jt.train(data)
     want = first + [row[1] for row in jt.outputs["train"]["evolution"]]
-    np.testing.assert_allclose(res[f"unet2d_{norm}/loss"], want, rtol=1e-4)
+    np.testing.assert_allclose(res[f"{prefix}/loss"], want, rtol=1e-4)
 
-    got = {k: res[f"unet2d_{norm}/step1/{k}"] for k in want_v}
+    got = {k: res[f"{prefix}/step1/{k}"] for k in want_v}
     params = [k for k in want_v if "running" not in k]
     assert adam_step1_share(got, want_v, W.UNET2D_TRAIN["lr"], params) >= 0.98
     for k in want_v:
         if "running" in k:
             np.testing.assert_allclose(got[k], want_v[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_unet2d_mesh_dropout_matches_jax(runs, world):
+    """Dropout 0.5 on the BatchNorm net: the JAX package's sharded step
+    draws its masks for the global batch (XLA keeps the generator whole),
+    and each gloo rank draws its rows of them, so the port at world N
+    follows the JAX package's mesh of N devices as with dropout off."""
+    jt = _jax_unet2d("batch", world, p_dropout=0.5)
+    _hold_unet2d_against_jax(runs[0][world][0], "unet2d_drop", jt)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_unet2d_dropout_world_n_equals_world_1(runs, world):
+    """Dropout 0.5: the first block's mask of the first step, gathered over
+    the ranks, equals world 1's, and the run holds to world 1's."""
+    np.testing.assert_array_equal(runs[0][world][0]["unet2d_drop/mask"],
+                                  runs[0][1][0]["unet2d_drop/mask"])
+    _hold_world(runs[0], world, "unet2d_drop")
 
 
 def _hold_world(res, world, prefix):

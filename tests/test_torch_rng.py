@@ -163,11 +163,18 @@ def test_helpers_equal_the_jax_package():
     assert torch.equal(_key(jax_rng.seed_everything(9)), rng.prng_key(9))
 
 
-def test_torch_generator_is_seeded_by_the_key():
-    a = torch.rand(5, generator=rng.torch_generator(rng.prng_key(1)))
-    b = torch.rand(5, generator=rng.torch_generator(rng.prng_key(1)))
-    c = torch.rand(5, generator=rng.torch_generator(rng.fold_in(rng.prng_key(1), 1)))
-    assert torch.equal(a, b) and not torch.equal(a, c)
+def test_rbg_key_is_the_dropout_key():
+    """Dropout's ``rbg`` key and its ``fold_in`` equal the JAX package's
+    ``dropout_key`` and jax's ``fold_in`` on it; another key differs."""
+    for seed in (1, 42):
+        k = jax_rng.dropout_key(jax.random.PRNGKey(seed))
+        want = [int(w) for w in np.asarray(jax.random.key_data(k))]
+        got = rng.rbg_key(rng.prng_key(seed))
+        assert list(got) == want
+        for data in (0, 7, 2**32 - 1):
+            assert list(rng.rbg_fold_in(got, data)) == [
+                int(w) for w in np.asarray(jax.random.key_data(jax.random.fold_in(k, data)))]
+    assert rng.rbg_key(rng.prng_key(1)) != rng.rbg_key(rng.fold_in(rng.prng_key(1), 1))
 
 
 def test_the_chip_constants_are_jaxs():

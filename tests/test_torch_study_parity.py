@@ -1,8 +1,8 @@
 """A tiny fold run of the paired label-efficiency study follows the JAX
 study's from the same seed: the scratch arm at 100% and 50% of the labels,
-2 folds of 2 epochs, dropout 0 (its masks are the port's own stream), on
-the study's data and splits. Both packages start every fold from the same
-net and draw the same shuffles, augmentation and kept patients, so each
+2 folds of 2 epochs at the study's own dropout, on the study's data and
+splits. Both packages start every fold from the same net and draw the
+same shuffles, augmentation, dropout masks and kept patients, so each
 fold's Dice (positive slices, as the study collects it) agrees within
 ``DICE_ATOL``: what is left is float rounding in 16 Adam steps and the
 thresholded masks' pixels that it flips."""
@@ -30,7 +30,6 @@ def _cfg(base, out):
     cfg = base(str(out), "scratch")
     cfg["split"]["n_fold"] = 2
     cfg["train"]["n_epoch"] = 2
-    cfg["net"]["p_dropout"] = 0.0
     return cfg
 
 

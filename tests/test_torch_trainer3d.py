@@ -28,6 +28,7 @@ from ich_tpu.train.segmentation3d import UNet3D as JaxUNet3D
 from ich_tpu_torch.data import nifti
 from ich_tpu_torch.data.core import VolumeDataset3D
 from ich_tpu_torch.interop.from_jax import unet_state_dict_from_jax
+from ich_tpu_torch.models.layers import set_dropout_keys
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
@@ -237,7 +238,7 @@ def test_resume_replays_the_uninterrupted_run(tmp_path, caplog):
 @pytest.mark.parametrize("norm,p_dropout", [("group", 0.0), ("batch", 0.3)])
 def test_remat_matches_plain(norm, p_dropout):
     """``remat=True``: the same ``state_dict`` keys; one forward and
-    backward in train mode with the same dropout generator gives equal
+    backward in train mode with the same dropout key gives equal
     gradients, and BatchNorm's running statistics are updated once, equal
     to the plain net's (torch.equal); the blocks do run twice."""
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 1) + PATCH)
@@ -246,10 +247,7 @@ def test_remat_matches_plain(norm, p_dropout):
     for remat in (False, True):
         torch.manual_seed(0)
         net = UNet(p_dropout=p_dropout, remat=remat, **{**NET, "norm": norm}).train()
-        gen = torch.Generator().manual_seed(1)
-        for m in net.modules():
-            if hasattr(m, "generator"):
-                m.generator = gen
+        set_dropout_keys(net, prng_key(1))
         calls = []
         net.down_block[0].conv1.register_forward_hook(lambda *a: calls.append(1))
         net(x).square().mean().backward()
