@@ -241,6 +241,18 @@ def test_committed_port_docs_are_what_their_snapshots_give(tmp_path):
             assert (tmp_path / doc).read_text() == f.read(), doc
 
 
+def test_committed_provenance_records_the_study_draws():
+    """Every arm of ``docs/torch_label_efficiency/provenance.json`` ran
+    with the draws the study makes today (``DRAWS``): snapshots taken
+    before a change to the port's draws hold nets or masks it no longer
+    draws, and their table says nothing of the port as it stands."""
+    with open(os.path.join(DOCS, "torch_label_efficiency", "provenance.json")) as f:
+        provenance = json.load(f)
+    assert list(provenance) == list(S.ARMS)
+    assert {arm: info.get("draws") for arm, info in provenance.items()} == {
+        arm: S.DRAWS for arm in S.ARMS}
+
+
 def test_snapshot_paths_read_the_snapshots_only(tmp_path):
     """A stray ``*/results.json`` beside the snapshots (a seed dir left in
     place) feeds neither the tables nor the comparison, while

@@ -4,7 +4,10 @@ against it, the malformed-header rejections included, with the port's
 Python NIfTI codec and window + resize as the reference; and the volumes
 it decodes equal to the JAX package's native loader's."""
 
+import fcntl
+import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +26,37 @@ def built():
     if shutil.which("g++") is None:
         pytest.skip("no g++ on PATH: the native loader cannot be built")
     assert native.available(), native._error
+
+
+def _load_jax_native(timeout: float = 120.0):
+    """The JAX package's native library, loaded once it is whole.
+
+    Each test process that imports ``tests/test_native.py`` builds
+    ``ich_tpu/native/libfastload.so`` to the same path, and under xdist
+    they do so at once: a process that loads a file another one is still
+    writing marks the build failed for good ("file too short"). So, under
+    a lock that these loads share, wait until the file stops growing,
+    clear that mark and load once more (which builds the library where
+    there is none). Raises if the library cannot be built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "ich_tpu_fastload.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if jax_native._lib is None:
+                size, deadline = -1, time.monotonic() + timeout
+                while os.path.exists(jax_native._LIB) and time.monotonic() < deadline:
+                    now = os.path.getsize(jax_native._LIB)
+                    if now == size:
+                        break
+                    size = now
+                    time.sleep(0.5)
+                jax_native._build_failed = False
+            if not jax_native.available():
+                raise RuntimeError(f"the JAX package's native library cannot be built "
+                                   f"from {jax_native._SRC}")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return jax_native
 
 
 def test_native_nifti_matches_python(tmp_path):
@@ -189,6 +223,7 @@ def test_load_nifti_batch_reports_bad_file(tmp_path):
 
 
 def test_decodes_as_the_jax_native_loader(tmp_path):
+    _load_jax_native()
     rng = np.random.default_rng(6)
     vol = rng.uniform(-100, 200, size=(12, 10, 5)).astype(np.float32)
     fn = str(tmp_path / "v.nii.gz")
@@ -217,3 +252,22 @@ def test_unavailable_library_raises(monkeypatch):
                  lambda: native.window_resize_batch(np.zeros((1, 4, 4), np.float32), 0, 1, (2, 2))):
         with pytest.raises(RuntimeError, match="unavailable: no g\\+\\+"):
             call()
+
+
+def test_jax_loader_recovers_from_a_lost_build_race(monkeypatch):
+    """A process that loaded the JAX library while another was writing it
+    holds the failed mark and no library; the load above clears it."""
+    _load_jax_native()
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_build_failed", True)
+    assert not jax_native.available()
+    assert _load_jax_native().available()
+
+
+def test_jax_loader_raises_where_the_library_cannot_be_built(tmp_path, monkeypatch):
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_build_failed", True)
+    monkeypatch.setattr(jax_native, "_SRC", str(tmp_path / "missing.cpp"))
+    monkeypatch.setattr(jax_native, "_LIB", str(tmp_path / "libfastload.so"))
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        _load_jax_native(timeout=1.0)
