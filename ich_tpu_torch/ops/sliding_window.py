@@ -20,6 +20,10 @@ by the JAX package's rule (:func:`sliding_window_inference`):
 The network ``apply_fn`` takes and returns channels-first batches,
 (B, C, pd, ph, pw) -> (B, C_out, pd, ph, pw); volumes and results keep the
 JAX package's channels-last layout.
+
+Both paths run under ``torch.profiler`` ranges, side by side: ``patches``
+(the padding and the patch stack), ``net`` (each call of ``apply_fn``) and
+``blend`` (the Gaussian weights and the accumulation).
 """
 
 from __future__ import annotations
@@ -93,15 +97,20 @@ def _sliding_window_general(
     acc = wacc = None
     for i in range(0, len(coords), batch_size):
         cs = coords[i:i + batch_size]
-        patches = torch.stack([volume[:, z:z + pd, y:y + ph, x:x + pw] for z, y, x in cs])
-        preds = apply_fn(patches).to(torch.float32) * gmap
-        if acc is None:
-            acc = volume.new_zeros((preds.shape[1],) + volume.shape[1:], dtype=torch.float32)
-            wacc = volume.new_zeros(volume.shape[1:], dtype=torch.float32)
-        for (z, y, x), p in zip(cs, preds):
-            acc[:, z:z + pd, y:y + ph, x:x + pw] += p
-            wacc[z:z + pd, y:y + ph, x:x + pw] += gmap
-    return acc / torch.clamp(wacc, min=1e-12)
+        with torch.profiler.record_function("patches"):
+            patches = torch.stack([volume[:, z:z + pd, y:y + ph, x:x + pw] for z, y, x in cs])
+        with torch.profiler.record_function("net"):
+            preds = apply_fn(patches)
+        with torch.profiler.record_function("blend"):
+            preds = preds.to(torch.float32) * gmap
+            if acc is None:
+                acc = volume.new_zeros((preds.shape[1],) + volume.shape[1:], dtype=torch.float32)
+                wacc = volume.new_zeros(volume.shape[1:], dtype=torch.float32)
+            for (z, y, x), p in zip(cs, preds):
+                acc[:, z:z + pd, y:y + ph, x:x + pw] += p
+                wacc[z:z + pd, y:y + ph, x:x + pw] += gmap
+    with torch.profiler.record_function("blend"):
+        return acc / torch.clamp(wacc, min=1e-12)
 
 
 def _cosets(dims: Tuple[int, int, int], patch_size: Tuple[int, int, int],
@@ -146,44 +155,54 @@ def _coset_inv_weights(dims: Tuple[int, int, int], patch_size: Tuple[int, int, i
 
 def _sliding_window_coset(
     apply_fn: Callable,
-    volume: torch.Tensor,  # (C, D', H', W') with (dim - patch) % stride == 0
+    volume: torch.Tensor,  # (C, D, H, W)
     patch_size: Tuple[int, int, int],
     stride: Tuple[int, int, int],
     batch_size: int,
 ) -> torch.Tensor:
-    """Regular-grid path: (C_out, D', H', W') float32 blend."""
+    """Regular-grid path: (C_out, D', H', W') float32 blend of the volume
+    padded at the far end of each axis to the regular grid, every
+    ``(dim' - patch) % stride == 0`` and ``dim' >= patch``."""
     pd, ph, pw = patch_size
-    c, dims = volume.shape[0], tuple(volume.shape[1:])
 
-    # 1. every coset's patches, as one global stack
-    cosets, stacks, total = [], [], 0
-    for (od, oh, ow), (md, mh, mw) in _cosets(dims, patch_size, stride):
-        view = volume[:, od:od + md * pd, oh:oh + mh * ph, ow:ow + mw * pw]
-        patches = view.reshape(c, md, pd, mh, ph, mw, pw).permute(1, 3, 5, 0, 2, 4, 6)
-        stacks.append(patches.reshape(md * mh * mw, c, pd, ph, pw))
-        cosets.append(((od, oh, ow), (md, mh, mw), total))
-        total += md * mh * mw
-    stack = torch.cat(stacks)
+    # 1. the padded volume's cosets' patches, as one global stack
+    with torch.profiler.record_function("patches"):
+        pads = [(p if dim <= p else p + -(-(dim - p) // s) * s) - dim
+                for dim, p, s in zip(volume.shape[1:], patch_size, stride)]
+        if any(pads):
+            volume = F.pad(volume, (0, pads[2], 0, pads[1], 0, pads[0]))
+        volume = volume.contiguous()
+        c, dims = volume.shape[0], tuple(volume.shape[1:])
+        cosets, stacks, total = [], [], 0
+        for (od, oh, ow), (md, mh, mw) in _cosets(dims, patch_size, stride):
+            view = volume[:, od:od + md * pd, oh:oh + mh * ph, ow:ow + mw * pw]
+            patches = view.reshape(c, md, pd, mh, ph, mw, pw).permute(1, 3, 5, 0, 2, 4, 6)
+            stacks.append(patches.reshape(md * mh * mw, c, pd, ph, pw))
+            cosets.append(((od, oh, ow), (md, mh, mw), total))
+            total += md * mh * mw
+        stack = torch.cat(stacks)
 
     # 2. the network over the global stack in batch_size chunks, the tail at
-    # its exact size; then the Gaussian weights
+    # its exact size, into one float32 stack; then the Gaussian weights
     preds = None
     for i in range(0, total, batch_size):
-        out = apply_fn(stack[i:i + batch_size])
-        if preds is None:
-            preds = torch.empty((total,) + out.shape[1:], dtype=torch.float32,
-                                device=volume.device)
-        preds[i:i + batch_size] = out
-    preds *= gaussian_importance_map(patch_size, volume.device)
+        with torch.profiler.record_function("net"):
+            out = apply_fn(stack[i:i + batch_size])
+            if preds is None:
+                preds = torch.empty((total,) + out.shape[1:], dtype=torch.float32,
+                                    device=volume.device)
+            preds[i:i + batch_size] = out
+    with torch.profiler.record_function("blend"):
+        preds *= gaussian_importance_map(patch_size, volume.device)
 
-    # 3. per coset, a reshape and one slice-add; then the reciprocal weights
-    c_out = preds.shape[1]
-    acc = volume.new_zeros((c_out,) + dims, dtype=torch.float32)
-    for (od, oh, ow), (md, mh, mw), start in cosets:
-        block = preds[start:start + md * mh * mw].reshape(md, mh, mw, c_out, pd, ph, pw)
-        block = block.permute(3, 0, 4, 1, 5, 2, 6).reshape(c_out, md * pd, mh * ph, mw * pw)
-        acc[:, od:od + md * pd, oh:oh + mh * ph, ow:ow + mw * pw] += block
-    return acc * _coset_inv_weights(dims, patch_size, stride, volume.device)
+        # 3. per coset, a reshape and one slice-add; then the reciprocal weights
+        c_out = preds.shape[1]
+        acc = volume.new_zeros((c_out,) + dims, dtype=torch.float32)
+        for (od, oh, ow), (md, mh, mw), start in cosets:
+            block = preds[start:start + md * mh * mw].reshape(md, mh, mw, c_out, pd, ph, pw)
+            block = block.permute(3, 0, 4, 1, 5, 2, 6).reshape(c_out, md * pd, mh * ph, mw * pw)
+            acc[:, od:od + md * pd, oh:oh + mh * ph, ow:ow + mw * pw] += block
+        return acc * _coset_inv_weights(dims, patch_size, stride, volume.device)
 
 
 def _route(patch_size: Tuple[int, int, int], overlap: float,
@@ -233,14 +252,7 @@ def sliding_window_inference(
 
     use_coset, strides, batch_size = _route(patch_size, overlap, batch_size)
     if use_coset:
-        # pad so every axis has (dim - patch) % stride == 0 and dim >= patch
-        pads = []
-        for dim, p, s in zip((d, h, w), patch_size, strides):
-            target = p if dim <= p else p + -(-(dim - p) // s) * s
-            pads.append(target - dim)
-        if any(pads):
-            vol = F.pad(vol, (0, pads[2], 0, pads[1], 0, pads[0]))
-        out = _sliding_window_coset(apply_fn, vol.contiguous(), patch_size, strides, batch_size)
+        out = _sliding_window_coset(apply_fn, vol, patch_size, strides, batch_size)
     else:
         pads = [max(0, p - s) for p, s in zip(patch_size, (d, h, w))]
         if any(pads):

@@ -9,6 +9,10 @@ Each step gets the JAX loop's key, ``fold_in(fold_in(prng_key(seed),
 epoch), batch)`` (:mod:`ich_tpu_torch.utils.rng`), from which its draws
 come, so a resumed run replays the uninterrupted one and the draws equal
 the JAX package's.
+
+Under ``torch.profiler`` each step's key shows as a ``keys`` range, and the
+epoch's end (its mean loss fetched, which waits for the epoch's work, the
+hook, the checkpoint and the preemption poll) as ``epoch_end``.
 """
 
 from __future__ import annotations
@@ -77,29 +81,32 @@ def fit(
         losses, epoch_start = [], time.time()
         epoch_key = rng.fold_in(root_key, epoch)
         for b, batch in enumerate(batches_fn(epoch)):
-            loss = train_step(state, batch, rng.fold_in(epoch_key, b))
+            with torch.profiler.record_function("keys"):
+                key = rng.fold_in(epoch_key, b)
+            loss = train_step(state, batch, key)
             losses.append(torch.stack(loss) if isinstance(loss, (tuple, list)) else loss)
-        mean_losses = None
-        if losses:
-            mean = torch.stack(losses).mean(dim=0)
-            if mesh is not None:
-                mean = all_reduce_mean(mean, mesh)
-            mean_losses = mean.cpu().numpy()
+        with torch.profiler.record_function("epoch_end"):
+            mean_losses = None
+            if losses:
+                mean = torch.stack(losses).mean(dim=0)
+                if mesh is not None:
+                    mean = all_reduce_mean(mean, mesh)
+                mean_losses = mean.cpu().numpy()
 
-        history.append(epoch_hook(state, epoch, mean_losses, time.time() - epoch_start))
-        saved = False
-        if checkpoint_path and (epoch + 1) % checkpoint_freq == 0:
-            ckpt.save_checkpoint_auto(checkpoint_path, state.state_dict(), epoch + 1, history,
-                                      mesh)
-            logger.info("\tCheckpoint saved.")
-            saved = True
-        if preemption.requested_global(mesh):
-            if checkpoint_path and not saved:
+            history.append(epoch_hook(state, epoch, mean_losses, time.time() - epoch_start))
+            saved = False
+            if checkpoint_path and (epoch + 1) % checkpoint_freq == 0:
                 ckpt.save_checkpoint_auto(checkpoint_path, state.state_dict(), epoch + 1,
                                           history, mesh)
-            logger.warning("Preemption requested: checkpointed after epoch %d, stopping.",
-                           epoch + 1)
-            break
+                logger.info("\tCheckpoint saved.")
+                saved = True
+            if preemption.requested_global(mesh):
+                if checkpoint_path and not saved:
+                    ckpt.save_checkpoint_auto(checkpoint_path, state.state_dict(), epoch + 1,
+                                              history, mesh)
+                logger.warning("Preemption requested: checkpointed after epoch %d, stopping.",
+                               epoch + 1)
+                break
 
     wall = time.time() - start_time
     logger.info("Finished training %s in %s", name, timedelta(seconds=int(wall)))

@@ -20,6 +20,12 @@ resize back (in the rotated frame) -> rot90 back -> uint8 x255.
 ``segment_volumes`` keeps up to ``pipeline_depth`` volumes queued on the
 device before it fetches the oldest result.
 
+Under ``torch.profiler`` a train step shows as side-by-side ranges:
+``keys`` (its keys split and handed to the Dropouts), ``augment``, ``net``
+(the forward, with the keyed ``dropout`` ranges inside), ``loss`` and
+``backward``; a served volume ends in ``fetch`` (the wait for its work and
+the copy to the host) and ``finish`` (x255 and the NIfTI write).
+
 With ``mesh=`` (an :class:`ich_tpu_torch.parallel.Mesh`) the trainer is
 data-parallel as the JAX package's jit-sharded one is: every rank holds
 the replicated net, replays the same host plan and gathers each global
@@ -244,7 +250,8 @@ class UNet2D:
         """One step from ``key``: ``aug_key, drop_key = split(key)``, as the
         JAX train step splits it (``augment_fn(aug_key, images, masks)``),
         then :meth:`_update`."""
-        aug_key, drop_key = rng.split(key)
+        with torch.profiler.record_function("keys"):
+            aug_key, drop_key = rng.split(key)
         augment = None
         if self.augment_fn is not None:
             augment = lambda im, mk: self.augment_fn(aug_key, im, mk)  # noqa: E731
@@ -265,12 +272,15 @@ class UNet2D:
                 images, masks = augment(images, masks)
         if self.mesh is not None:
             images, masks = shard_batch((images, masks), self.mesh)
-        set_dropout_keys(state.model, drop_key, self.mesh)
-        pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
+        with torch.profiler.record_function("keys"):
+            set_dropout_keys(state.model, drop_key, self.mesh)
+        with torch.profiler.record_function("net"):
+            pred = state.model(images.movedim(-1, 1)).movedim(1, -1)
         with torch.profiler.record_function("loss"):
             loss = self.loss(pred, masks)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with torch.profiler.record_function("backward"):
+            loss.backward()
         state.apply_gradients()
         return loss.detach()
 
@@ -453,13 +463,21 @@ class UNet2D:
         with torch.inference_mode():
             return self._segment(vol, tuple(input_size), window)[:, :, :z]
 
+    @staticmethod
+    def _fetch(mask: torch.Tensor) -> np.ndarray:
+        """A device mask as a host array: the wait for its queued work and
+        the copy."""
+        with torch.profiler.record_function("fetch"):
+            return mask.cpu().numpy()
+
     def _finish(self, mask: np.ndarray, affine, save_fn) -> np.ndarray:
         """The uint8 {0, 255} mask of a fetched {0, 1} mask, written as
         NIfTI to ``save_fn`` (by rank 0 only on a mesh)."""
-        pred = mask * np.uint8(255)
-        if save_fn and self._writes:
-            nifti.save(save_fn, pred, affine if affine is not None else np.eye(4))
-        return pred
+        with torch.profiler.record_function("finish"):
+            pred = mask * np.uint8(255)
+            if save_fn and self._writes:
+                nifti.save(save_fn, pred, affine if affine is not None else np.eye(4))
+            return pred
 
     def _segment_all(self, enqueue: Callable[[np.ndarray], torch.Tensor], volumes, affines,
                      save_fns, return_preds: bool, pipeline_depth: int):
@@ -475,7 +493,8 @@ class UNet2D:
                 and all(v.shape == volumes[0].shape for v in volumes)):
             masks = volume_parallel_map(enqueue, volumes, self.mesh)
         else:
-            masks = fetch_pipelined((enqueue(v) for v in volumes), depth=max(1, pipeline_depth))
+            masks = fetch_pipelined((enqueue(v) for v in volumes), depth=max(1, pipeline_depth),
+                                    fetch=self._fetch)
         preds: List[np.ndarray] = []
         for i, m in enumerate(masks):
             pred = self._finish(m, affines[i] if affines is not None else None,
@@ -495,7 +514,7 @@ class UNet2D:
     ):
         """Segment every slice of an (H, W, Z) volume. Returns a uint8
         {0, 255} volume if ``return_pred``; optionally writes NIfTI."""
-        pred = self._finish(self._enqueue(vol_data, input_size, window).cpu().numpy(), affine,
+        pred = self._finish(self._fetch(self._enqueue(vol_data, input_size, window)), affine,
                             save_fn)
         if return_pred:
             return pred

@@ -19,7 +19,9 @@ by Gaussian-blended sliding-window inference (:mod:`ich_tpu_torch.ops.
 sliding_window`) with the net in eval mode, and thresholded; only the uint8
 mask, or for ``evaluate`` four confusion counts, come back.
 ``segment_volumes`` and ``evaluate`` keep two volumes queued on the device
-before they fetch the oldest result.
+before they fetch the oldest result. Under ``torch.profiler`` the copy to
+the device shows as an ``upload`` range and the patch draw as ``sample``;
+the sliding window has its own ranges.
 
 With ``mesh=`` the trainer is data-parallel as :class:`UNet2D` is: every
 rank draws the global batch's patches from the same draws (both samplers),
@@ -192,7 +194,8 @@ class UNet3D(UNet2D):
         stays whole. Then :meth:`UNet2D._step` from ``key``."""
         ks = None
         if device_sampler:
-            ks, key = rng.split(key)
+            with torch.profiler.record_function("keys"):
+                ks, key = rng.split(key)
         with torch.profiler.record_function("sample"):
             images, masks = draw(ks)
         return self._step(state, images, masks, key)
@@ -257,13 +260,14 @@ class UNet3D(UNet2D):
 
     def _upload(self, vol_data: np.ndarray) -> torch.Tensor:
         """A float32 copy of ``vol_data`` on the device."""
-        arr = np.asarray(vol_data)
-        if self.device.type == "cuda":
-            # pinned + non_blocking: the copy does not wait for queued work
-            host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
-            host.numpy()[...] = arr
-            return host.to(self.device, non_blocking=True)
-        return torch.from_numpy(np.array(arr, dtype=np.float32))
+        with torch.profiler.record_function("upload"):
+            arr = np.asarray(vol_data)
+            if self.device.type == "cuda":
+                # pinned + non_blocking: the copy does not wait for queued work
+                host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
+                host.numpy()[...] = arr
+                return host.to(self.device, non_blocking=True)
+            return torch.from_numpy(np.array(arr, dtype=np.float32))
 
     def _enqueue(self, vol_data: np.ndarray, window: Optional[Tuple[float, float]],
                  threshold: float) -> torch.Tensor:
@@ -294,7 +298,7 @@ class UNet3D(UNet2D):
         """Window on the device, then sliding-window segmentation of a raw
         (D, H, W) volume. Returns the uint8 {0, 255} mask if
         ``return_pred``; optionally writes it as NIfTI."""
-        pred = self._finish(self._enqueue(vol_data, window, threshold).cpu().numpy(), affine,
+        pred = self._finish(self._fetch(self._enqueue(vol_data, window, threshold)), affine,
                             save_fn)
         if return_pred:
             return pred
@@ -324,7 +328,7 @@ class UNet3D(UNet2D):
 
     def predict_volume(self, vol: np.ndarray, threshold: float = 0.5) -> np.ndarray:
         """(D, H, W) preprocessed volume -> uint8 {0, 1} mask."""
-        return self._enqueue(vol, None, threshold).cpu().numpy()
+        return self._fetch(self._enqueue(vol, None, threshold))
 
     # -- evaluation ---------------------------------------------------------------
 

@@ -1,8 +1,7 @@
 """Tracing, timing and FLOP counting (counterpart of
-:mod:`ich_tpu.utils.profiling`): a ``torch.profiler`` trace context, a
-per-step timer with warm-up exclusion, the device time of a callable, the
-FLOPs of one call, and the dense peaks of NVIDIA cards for a roofline or
-MFU denominator.
+:mod:`ich_tpu.utils.profiling`): a ``torch.profiler`` trace context, the
+device time of a callable, the FLOPs of one call, and the dense peaks of
+NVIDIA cards for a roofline or MFU denominator.
 
 Work on a card is timed with CUDA events, since PyTorch returns before the
 device finishes; work on the CPU with ``time.perf_counter``.
@@ -13,9 +12,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
@@ -97,51 +95,6 @@ def _resolve(device, args) -> torch.device:
         return torch.device(device)
     leaf = _first_tensor(args)
     return leaf.device if leaf is not None else torch.device("cpu")
-
-
-class StepTimer:
-    """Per-step wall-time statistics with warm-up exclusion: ``with
-    timer:`` around each step. On a card (``device``) a step is timed with
-    CUDA events on the current stream, and ``__exit__`` waits for it."""
-
-    def __init__(self, warmup: int = 2, device: str | torch.device = "cpu"):
-        self.warmup = warmup
-        self.device = torch.device(device)
-        self.times: List[float] = []
-        self._n = 0
-        self._t0 = None
-
-    def __enter__(self):
-        if self.device.type == "cuda":
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.device.type == "cuda":
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            end.synchronize()
-            dt = self._t0.elapsed_time(end) / 1e3
-        else:
-            dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(dt)
-
-    def stats(self) -> Dict[str, float]:
-        if not self.times:
-            return {"mean_s": float("nan"), "p50_s": float("nan"),
-                    "p95_s": float("nan"), "steps": 0}
-        t = np.asarray(self.times)
-        return {
-            "mean_s": float(t.mean()),
-            "p50_s": float(np.percentile(t, 50)),
-            "p95_s": float(np.percentile(t, 95)),
-            "steps": len(t),
-        }
 
 
 def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2,

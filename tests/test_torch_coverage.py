@@ -52,6 +52,9 @@ NOT_NEEDED = {
                                                  "helper; the port has `replicate`",
     ("parallel/sharded_inference.py", "shard_map_fn"): "`shard_map_fn` wraps jax's "
                                                        "`shard_map`",
+    ("utils/profiling.py", "StepTimer"): "`StepTimer` synchronised the card every step; "
+                                         "the port's steps are timed by the benchmark's "
+                                         "windows and read from `torch.profiler` ranges",
 }
 UPPER = re.compile(r"[A-Z][A-Z0-9_]*")
 

@@ -797,10 +797,10 @@ def test_native_loader_builds_on_the_card_machine(card, tmp_path):
 
 
 def test_profiling_times_and_traces_the_card(card, tmp_path):
-    """``utils/profiling`` on the card: ``time_fn`` and ``StepTimer`` on
-    CUDA events (a 4096^2 matmul takes device time the host clock alone
-    would not see), ``sync`` waits and fetches, the trace holds device
-    kernels, and the card's name has its data-sheet peaks."""
+    """``utils/profiling`` on the card: ``time_fn`` on CUDA events (a
+    4096^2 matmul takes device time the host clock alone would not see),
+    ``sync`` waits and fetches, the trace holds device kernels, and the
+    card's name has its data-sheet peaks."""
     from ich_tpu_torch.utils import profiling as prof
 
     x = torch.randn(4096, 4096, device="cuda")
@@ -810,11 +810,7 @@ def test_profiling_times_and_traces_the_card(card, tmp_path):
     # float32 outside TF32: at most the card's float32 peak, at least 1%
     peak = prof.peak_tflops(torch.cuda.get_device_name(0), "fp32") or 67.0
     assert 0.01 * peak <= flops / out["mean_s"] / 1e12 <= 1.05 * peak
-    timer = prof.StepTimer(warmup=1, device="cuda")
-    for _ in range(3):
-        with timer:
-            y = x @ x
-    assert timer.stats()["steps"] == 2 and timer.stats()["mean_s"] > 0.1 * out["mean_s"]
+    y = x @ x
     assert prof.sync(y) == float(y[0, 0].cpu())
     with prof.device_trace(str(tmp_path)) as p:
         (x @ x).sum()

@@ -20,25 +20,6 @@ CONV_SHAPE, CONV_OUT = (2, 8, 32, 32), 16  # (N, C, H, W) -> 16 channels, 3x3 SA
 CONV_FLOPS = 2 * 2 * 32 * 32 * CONV_OUT * 8 * 9  # 2·N·H·W·Cout·Cin·9
 
 
-@pytest.mark.parametrize("times", [[], [0.5], [0.1, 0.3, 0.2, 0.9, 0.25]])
-def test_step_timer_stats_equal_the_jax_timer(times):
-    port, ref = prof.StepTimer(), jax_prof.StepTimer()
-    port.times, ref.times = list(times), list(times)
-    got, want = port.stats(), ref.stats()
-    assert got.keys() == want.keys()
-    for k in got:
-        assert got[k] == want[k] or (np.isnan(got[k]) and np.isnan(want[k])), k
-
-
-def test_step_timer_excludes_warmup_on_the_cpu():
-    timer = prof.StepTimer(warmup=2)
-    for _ in range(5):
-        with timer:
-            torch.ones(8).sum()
-    stats = timer.stats()
-    assert stats["steps"] == 3 and stats["mean_s"] >= 0.0
-
-
 def test_peak_tflops_by_card_name():
     assert prof.peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
     assert prof.peak_tflops("NVIDIA H100 80GB HBM3", "tf32") == 495.0
