@@ -30,7 +30,9 @@ its last line:
    midchannels_factor 2, bf16) with seeded random weights serves three
    512x512x64 head-CT NIfTIs through ``ich_tpu_torch.serve --mode 3d`` (64^3
    patches at overlap 0.5, 128 patches per call: the 64x512x512 volume of
-   ``bench.py``); an identity network blends a 64x512x512 volume back to
+   ``bench.py``), 2 fused GroupNorm+ReLU launches for each GroupNorm of
+   each net call there and in one ``UNet3D.segment_volume``; an identity
+   network blends a 64x512x512 volume back to
    itself on the card and on the CPU (within 1e-4 of the input, 1e-6 of
    each other); a 64x128x128 crop in float32 (TF32 off) agrees with the CPU
    on at least 99.99% of voxels and within 1e-4 in probability; bf16 is
@@ -43,7 +45,8 @@ its last line:
    ``run_supervised_2d`` end to end, 2 folds x 2 epochs with per-epoch
    validation, each fold training on 512 synthetic slices over 16 volumes
    kept on the card and testing on 128 over 4, its artifacts checked and
-   the mean loss falling from epoch 1 to 2 in each fold; (b) three train
+   the mean loss falling from epoch 1 to 2 in each fold, no GroupNorm
+   launch on its BatchNorm net; (b) three train
    steps of the full-width net on a fixed batch of 4 (dropout and
    augmentation off, TF32 off) on the card and on the CPU, losses and
    weights within the printed tolerances; (c) the config's augmentation
@@ -59,14 +62,17 @@ its last line:
    sw_batch_size 8): (a) ``run_supervised_3d`` on a synthetic SegICH 3D
    tree of the config's five 512x512x32 CTs at 5 mm (resampled to 2.5 mm
    by the loader), 4 epochs x 25 steps, its artifacts checked and the mean
-   loss falling; (b) three full-width train steps (batch 2 of 32x64x64,
+   loss falling, its GroupNorm launches 2 a GroupNorm a pass; (b) three
+   full-width train steps (batch 2 of 32x64x64,
    TF32 off) on the card and on the CPU, held as phase 6's; (c)
    ``default_patch_augmentation`` (the ``AffineAugment3D`` warp and the
    brightness jitter) and the ``DevicePatchSampler``'s draws, starts and
    gather, each drawing from one key, card against CPU; (d)
    warm step times, patches/s, voxels/s, FLOP rate and peak memory at
    batch 4 of 64x128x128 in float32 with TF32, batch 8 and 64 of 64^3 in
-   bf16, and batch 2 of 128^3 in bf16 with remat, and the host and device
+   bf16, and batch 2 of 128^3 in bf16 with remat, the GroupNorm launches
+   of the timed steps (2 a GroupNorm in the forward, in the backward and,
+   with remat, in the recompute), and the host and device
    samplers' ms per batch; (e) a profiler breakdown of one warm step at
    batch 4;
 8. SSL pretraining at the width of ``configs/context_restoration.json`` and
@@ -287,18 +293,32 @@ its last line:
    commit's ``bernoulli_`` path and the byte bound; (d) its launches in
    one ``train2d_bs16`` step (5 forward, 5 backward); (e) that step's time
    with the parent's dropout (its module and per-step set-up) and with the
-   kernel in 10 pairs of turns, alternating which runs first.
+   kernel in 10 pairs of turns, alternating which runs first;
+17. group_norm: the fused GroupNorm+ReLU kernels (``csrc/group_norm.cu``)
+   at the 3D net's four GroupNorm shapes in a serve call of 128 64^3
+   patches and a training step of 64, in bf16 and float32: (a) forward
+   and backward, launched directly and through ``group_norm_relu`` with
+   autograd, against the plain versions (bf16 in ulps of the float32
+   plain value); (b) their launches in one forward and backward of the 3D
+   net (28 and 28) and of a BatchNorm net (0); (c) the device ms of each
+   forward and backward against the byte bound, the plain backward and
+   torch's ``F.relu(F.group_norm(...))`` forward and its autograd backward
+   (the library yardstick, which the port's card path never calls; it is
+   also the plain forward), and their sums over one net forward of 14
+   calls (bf16, 128 patches) and one training step's 14 forward and 14
+   backward calls (bf16, 64 patches).
 
 Each path is driven with the kernel launch counts set to 0 just before and
 read just after (the training, SSL, phase 9, phase 11, 12, 13, 14 and 15
 paths must read 0 EDT launches; the GAN path 0 dropout launches). The line
 before the last is a JSON object with each kernel's launches on the path
 that owns it (the GAN training of phase 10 (a) for the EDT kernels, phase
-6 (a)'s k-fold training for dropout), its launches by path (phase 4's EDT
-leg and phases 14 and 15 too, for dropout the study and a train2d_bs16
-step), its error against the plain version, its times, its bound and, for
-dropout, ``F.dropout``'s time; the last line is ``{"ok": true, "device":
-{...}}``.
+6 (a)'s k-fold training for dropout, phase 5's ``serve --mode 3d`` for
+group_norm), its launches by path (phase 4's EDT leg and phases 14 and 15
+too, for dropout the study and a train2d_bs16 step, for group_norm phase
+7 (d)'s timed steps), its error against the plain version,
+its times, its bound and, for dropout and group_norm, the library call's
+time; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -374,6 +394,7 @@ from ich_tpu_torch.models.layers import Dropout
 from ich_tpu_torch.models.unet import UNet
 from ich_tpu_torch.ops import ct, edt
 from ich_tpu_torch.ops import dropout as dropout_ops
+from ich_tpu_torch.ops import group_norm as gn_ops
 from ich_tpu_torch.ops import losses as losses_mod
 from ich_tpu_torch.ops import morphology as morph
 from ich_tpu_torch.ops.masks import (
@@ -638,6 +659,12 @@ DROPOUT_BF16 = (2, 16, 64, 64, 64)
 DROPOUT_OFFSETS = (0, 4, 6)
 DROPOUT_TURN_STEPS = 15  # timed train2d_bs16 steps a turn
 DROPOUT_PAIRS = 10  # pairs of parent and change turns
+# (N, C, D, H, W, groups): the 3D net's GroupNorm shapes (configs/
+# unet3d_throughput.json: depth 4, top filter 16, 16 channels a group), with
+# the calls each shape takes in one net forward
+GN_LEVELS = (((16, 64, 1), 4), ((32, 32, 2), 4), ((64, 16, 4), 4), ((128, 8, 8), 2))
+GN_BATCHES = (("serve", 128), ("train", 64))  # a serve call's patches, a step's batch
+GN_EPS = 1e-6
 DEV = "cuda"
 
 
@@ -1045,7 +1072,32 @@ def _profile_summary(prof, wall_ms: float, label: str, groups: tuple, ranges: tu
             f"{shares(((e.key, e.self_device_time_total) for e in kernels), 8)}")
 
 
-def phase_3d(rng: np.random.Generator, work: str) -> None:
+@contextlib.contextmanager
+def _gn_counted():
+    """Sets the group_norm launch count to 0 and yields a dict that holds,
+    once the block ends, ``launches`` (read after a sync) and ``want``: 2
+    launches for each GroupNorm of each ``UNet`` forward call made inside
+    the block (a global forward hook counts them)."""
+    norms = []
+
+    def hook(m, args, out):
+        if isinstance(m, UNet):
+            norms.append(sum(isinstance(k, torch.nn.GroupNorm) for k in m.modules()))
+
+    out = {}
+    gn_ops.launches = 0
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield out
+    finally:
+        handle.remove()
+        torch.cuda.synchronize()
+        out.update(launches=gn_ops.launches, want=2 * sum(norms), net_calls=len(norms))
+
+
+def phase_3d(rng: np.random.Generator, work: str) -> dict:
+    """5. The 3D path; returns the group_norm launches of ``serve --mode
+    3d`` and of one ``UNet3D.segment_volume``."""
     watch, out = os.path.join(work, "watch"), os.path.join(work, "out")
     os.makedirs(watch)
     vols = []  # (D, H, W), as the 3D path takes them
@@ -1066,14 +1118,15 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
     edt.launches = edt.mask_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve.main(["--watch-dir", watch, "--output-dir", out, "--model", model_fn,
-                "--mode", "3d", "--depth", str(NET3D["depth"]),
-                "--top-filter", str(NET3D["top_filter"]), "--patch", str(PATCH3D),
-                "--win-center", str(WINDOW[0]), "--win-width", str(WINDOW[1]),
-                "--device", DEV, "--once"])
-    torch.cuda.synchronize()
+    with _gn_counted() as gn_serve:
+        serve.main(["--watch-dir", watch, "--output-dir", out, "--model", model_fn,
+                    "--mode", "3d", "--depth", str(NET3D["depth"]),
+                    "--top-filter", str(NET3D["top_filter"]), "--patch", str(PATCH3D),
+                    "--win-center", str(WINDOW[0]), "--win-width", str(WINDOW[1]),
+                    "--device", DEV, "--once"])
     serve_s = time.perf_counter() - t0
-    launches = {"edt_envelope_pass": edt.launches, "edt_mask_rows": edt.mask_launches}
+    launches = {"edt_envelope_pass": edt.launches, "edt_mask_rows": edt.mask_launches,
+                "group_norm_relu": gn_serve["launches"]}
 
     masks = []
     for i in range(N_VOLS):
@@ -1086,8 +1139,13 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
         masks.append(m)
     positive = float(np.mean(masks[0] == 255))
     check(0.0 < positive < 1.0, f"3d: degenerate mask: positive share {positive}")
-    served = float(np.mean(np.transpose(masks[0], (2, 0, 1))
-                           == trainer.segment_volume(vols[0], window=WINDOW)))
+    with _gn_counted() as gn_one:
+        one = trainer.segment_volume(vols[0], window=WINDOW)
+    served = float(np.mean(np.transpose(masks[0], (2, 0, 1)) == one))
+    for label, c in (("serve --mode 3d", gn_serve), ("UNet3D.segment_volume", gn_one)):
+        check(c["net_calls"] > 0 and c["launches"] == c["want"],
+              f"3d: {label}: {c['launches']} group_norm launches for {c['net_calls']} net "
+              f"calls, not {c['want']} (2 a GroupNorm)")
     check(served >= MIN_AGREEMENT, f"3d: served mask vs UNet3D.segment_volume {served}")
     t0 = time.perf_counter()
     nifti.load(os.path.join(watch, "ct0.nii.gz"))
@@ -1099,7 +1157,8 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
           f"{serve_s / N_VOLS!r} s/volume (first call); per volume: decode {decode_s!r} s, "
           f"encode {encode_s!r} s; positive share {positive:.4f}; agreement with "
           f"UNet3D.segment_volume {served:.6f}; port kernel launches on the 3D path "
-          f"{launches}")
+          f"{launches} ({gn_serve['net_calls']} net calls; one segment_volume: "
+          f"{gn_one['launches']} group_norm launches in {gn_one['net_calls']} net calls)")
 
     # blend geometry at full size: an identity network, card and CPU
     x = torch.from_numpy(rng.uniform(size=vols[0].shape).astype(np.float32))
@@ -1172,6 +1231,7 @@ def phase_3d(rng: np.random.Generator, work: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     print(_profile_summary(prof, wall_ms, "3d profile (bf16, one warm segment_volume)",
                            OP_GROUPS_3D, ("unet3d",)))
+    return {"serve3d": gn_serve["launches"], "segment_volume": gn_one["launches"]}
 
 
 def load_train_cfg(out_dir: str) -> dict:
@@ -1209,7 +1269,7 @@ def _trainer(cfg: dict, device, net: dict | None = None, mesh=None, **overrides)
 def _train_kfold(cfg: dict, folds: list) -> None:
     """(a) the k-fold experiment end to end; returns the keyed dropout
     kernel's launches on it."""
-    edt.launches = edt.mask_launches = dropout_ops.launches = 0
+    edt.launches = edt.mask_launches = dropout_ops.launches = gn_ops.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_supervised_2d(cfg, datasets_by_fold=lambda k: folds[k], device=DEV)
@@ -1245,7 +1305,8 @@ def _train_kfold(cfg: dict, folds: list) -> None:
     print(f"train2d k-fold: {cfg['split']['n_fold']} folds x {cfg['train']['n_epoch']} epochs "
           f"in {wall!r} s ({avg}); port kernel launches on the training path "
           f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}, "
-          f"'keyed_dropout': {dropout_ops.launches}}}")
+          f"'keyed_dropout': {dropout_ops.launches}, 'group_norm_relu': {gn_ops.launches}}}")
+    check(gn_ops.launches == 0, "train2d: the group_norm kernels ran on a BatchNorm net")
     drops = cfg["net"]["depth"]  # the down blocks and the bottleneck
     check(dropout_ops.launches > 0 and dropout_ops.launches % (2 * drops) == 0,
           f"train2d: {dropout_ops.launches} dropout launches, not 2 x {drops} a step")
@@ -1481,8 +1542,8 @@ def _train3d_driver(cfg: dict) -> None:
     edt.launches = edt.mask_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer = run_supervised_3d(cfg, device=DEV)
-    torch.cuda.synchronize()
+    with _gn_counted() as gn_run:
+        trainer = run_supervised_3d(cfg, device=DEV)
     wall = time.perf_counter() - t0
     out = os.path.join(cfg["path"]["OUTPUT"], cfg["exp_name"])
     for name in ("volume_prediction_scores.csv", "trained_unet3d.bin", "outputs.json"):
@@ -1501,7 +1562,11 @@ def _train3d_driver(cfg: dict) -> None:
           f"{o['eval']['dice']['all']!r}, IoU {o['eval']['iou']['all']!r}; train time "
           f"{o['train']['time']!r} s, evaluate {o['eval']['time']!r} s; the net in eval mode "
           f"after training {not trainer.unet.training}; port kernel launches on the path "
-          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}}}")
+          f"{{'edt_envelope_pass': {edt.launches}, 'edt_mask_rows': {edt.mask_launches}, "
+          f"'group_norm_relu': {gn_run['launches']}}} in {gn_run['net_calls']} net calls")
+    check(gn_run["net_calls"] > 0 and gn_run["launches"] > 0
+          and gn_run["launches"] % (gn_run["want"] // gn_run["net_calls"]) == 0,
+          f"train3d: {gn_run['launches']} group_norm launches, not 2 a GroupNorm a pass")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"train3d: the mean loss did not fall {losses}")
     check(not trainer.unet.training, "train3d: the net is left in train mode")
@@ -1599,9 +1664,12 @@ def _train3d_step_times(cfg: dict, train):
     """(d) warm ms per step of each ``TIMED3D`` cell through the trainer's
     step (device sampler, the JAX bench arm's default patch augmentation),
     FLOPs and their rate, peak memory; the host and device samplers' ms
-    per batch. Returns the warm (trainer, draw, state) of the first cell."""
+    per batch; the group_norm launches of the timed steps, 2 a GroupNorm in
+    the forward, as many in the backward and, with remat, in the recompute.
+    Returns the warm (trainer, draw, state) of the first cell and the
+    launches by cell."""
     torch.backends.cudnn.allow_tf32 = True
-    samplers, warm = {}, None
+    samplers, warm, gn_launches = {}, None, {}
     for cell, patch, bs, dtype, remat in TIMED3D:
         if patch not in samplers:
             samplers[patch] = DevicePatchSampler(train, patch, cfg["train"]["pos_frac"],
@@ -1617,10 +1685,14 @@ def _train3d_step_times(cfg: dict, train):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for i in range(n):
-            t._sample_step(state, draw, K(3 + i))
-        torch.cuda.synchronize()
+        with _gn_counted() as c:
+            for i in range(n):
+                t._sample_step(state, draw, K(3 + i))
         ms = (time.perf_counter() - t0) / n * 1e3
+        gn_launches[cell] = c["launches"]
+        check(c["net_calls"] == n and c["launches"] == c["want"] * (2 + remat),
+              f"{cell}: {c['launches']} group_norm launches in {n} steps, not "
+              f"{c['want'] * (2 + remat)} ({c['net_calls']} net calls)")
         peak = torch.cuda.max_memory_allocated() / 2**30
         flops = compiled_flops(t._sample_step, state, draw, K(99))
         peak_tf, peak_name = ((PEAK["tf32"], "TF32") if dtype == torch.float32
@@ -1632,7 +1704,8 @@ def _train3d_step_times(cfg: dict, train):
               f"{bs * int(np.prod(patch)) / ms / 1e3!r} Mvoxels/s; {flops / 1e12!r} TFLOP per "
               f"step (FlopCounterMode: forward, backward{', the recompute' if remat else ''}) "
               f"= {tflops!r} TFLOP/s, {100 * tflops / peak_tf!r}% of the dense {peak_name} peak; "
-              f"peak device memory {peak!r} GiB")
+              f"peak device memory {peak!r} GiB; group_norm launches over the {n} timed steps "
+              f"{c['launches']}")
         if cell == TIMED3D[0][0]:
             warm = (t, draw, state)
         elif patch == SAMPLER_PATCH and bs == SAMPLER_BATCH:
@@ -1644,7 +1717,7 @@ def _train3d_step_times(cfg: dict, train):
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"train3d nvidia-smi after the timed steps: {smi}")
-    return warm
+    return warm, gn_launches
 
 
 def _sampler_times(t: UNet3D, train, sampler, pos_frac: float) -> None:
@@ -1692,7 +1765,9 @@ def _train3d_profile(t: UNet3D, draw, state) -> None:
                            f"TF32 on)", OP_GROUPS_TRAIN3D, TRAIN3D_RANGES))
 
 
-def phase_train3d(rng: np.random.Generator, work: str) -> None:
+def phase_train3d(rng: np.random.Generator, work: str) -> dict:
+    """7. 3D patch training; returns the group_norm launches of the timed
+    steps by cell."""
     cfg = load_train3d_cfg(work)
     t0 = time.perf_counter()
     _write_segich3d(rng, cfg)
@@ -1708,7 +1783,9 @@ def phase_train3d(rng: np.random.Generator, work: str) -> None:
           f"{time.perf_counter() - t0!r} s; {len(train)} train volumes")
     _train3d_hold(cfg, train)
     _train3d_aug_sampler_hold(cfg, train)
-    _train3d_profile(*_train3d_step_times(cfg, train))
+    warm, gn_launches = _train3d_step_times(cfg, train)
+    _train3d_profile(*warm)
+    return gn_launches
 
 
 # -- phase 8: SSL pretraining ---------------------------------------------------------
@@ -4791,6 +4868,161 @@ def phase_dropout(work: str) -> dict:
     return {**row, "max_abs_err": err, "step_launches": step}
 
 
+def _gn_case(n: int, level: tuple, dtype, gen) -> tuple:
+    (c, side, groups), _ = level
+    x = (torch.randn((n, c, side, side, side), device=DEV, generator=gen) * 2 + 0.5).to(dtype)
+    w = torch.rand(c, device=DEV, generator=gen) + 0.5
+    b = torch.randn(c, device=DEV, generator=gen) * 0.3
+    dy = torch.randn(x.shape, device=DEV, generator=gen).to(dtype)
+    return x, groups, w, b, dy
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest distance of a bf16 tensor from float32 values, in bf16
+    ulps of each value."""
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def _gn_equal() -> float:
+    """(a) the kernels, launched directly and through the nets' entry
+    ``group_norm_relu`` (its forward, and its backward by autograd), against
+    the plain versions at every shape and dtype; returns the largest bf16
+    distance in ulps, away from values near zero (within 1e-5 of the
+    largest, where bf16's ulps are finer than the float32 sums' own
+    spread)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    worst = 0.0
+    for label, n in GN_BATCHES:
+        for level in GN_LEVELS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, groups, w, b, dy = _gn_case(n, level, dtype, gen)
+                wr, br = w.to(dtype).float(), b.to(dtype).float()
+                y, mean, rstd = gn_ops._forward(x, groups, w, b, GN_EPS)
+                dx, dw, db = gn_ops._backward(dy, x, groups, w, b, mean, rstd)
+                xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+                ey = gn_ops.group_norm_relu(xl, groups, wl, bl, GN_EPS)
+                ey.backward(dy)
+                py = gn_ops.group_norm_relu_plain(x.float(), groups, wr, br, GN_EPS)
+                pdx, pdw, pdb = gn_ops.group_norm_relu_backward_plain(
+                    dy.float(), x.float(), groups, wr, br, mean, rstd)
+                torch.cuda.synchronize()
+                aten = gn_ops.group_norm_relu_plain(x, groups, w, b, GN_EPS)
+                errs = []
+                for got, want in ((y, py), (dx, pdx), (ey.detach(), py), (xl.grad, pdx),
+                                  (aten, py)):
+                    near = want.abs() <= 1e-5 * float(want.abs().max())
+                    diff = (got.float() - want).abs()
+                    if dtype == torch.bfloat16:
+                        far = ~near
+                        errs.append(_bf16_ulps(got[far], want[far]))
+                        worst = max(worst, errs[-1] if got is not aten else 0.0)
+                        ok = bool((diff[near] <= 1e-5 * float(want.abs().max())).all())
+                    else:
+                        errs.append(float(diff.max() / want.abs().max()))
+                        ok = errs[-1] <= 1e-5
+                    check(got is aten or (ok and (dtype == torch.float32 or errs[-1] <= 1.0)),
+                          f"group_norm: the kernel differs from the plain version at {n} x "
+                          f"{level[0]} {dtype}: {errs}")
+                sums = [float((g - r).abs().max() / r.abs().max())
+                        for g, r in ((dw, pdw), (db, pdb), (wl.grad, pdw), (bl.grad, pdb))]
+                check(max(sums) <= 1e-4 and wl.grad.dtype == bl.grad.dtype == torch.float32,
+                      f"group_norm: dweight/dbias {sums} at {n} x {level[0]}")
+                print(f"group_norm (a) {label} {n} x {level[0]} {str(dtype)[6:]}: the "
+                      f"kernels' y and dx, group_norm_relu's y and x.grad, and torch's own y on "
+                      f"the card in this dtype, against the plain float32 values: "
+                      f"{'ulps' if dtype == torch.bfloat16 else 'relative'} {errs}; dweight and "
+                      f"dbias, then group_norm_relu's weight.grad and bias.grad, relative {sums}")
+                del x, dy, y, dx, xl, ey, py, pdx, aten
+    return worst
+
+
+def _gn_launches() -> None:
+    """(b) launches of one forward and backward of the 3D net (bf16, a
+    32^3 batch of 2) and of the same net with BatchNorm."""
+    x = torch.randn(2, 1, 32, 32, 32, device=DEV)
+    counts = {}
+    for norm in ("group", "batch"):
+        net = UNet(depth=4, ndim=3, top_filter=16, midchannels_factor=1, norm=norm,
+                   p_dropout=0.0, dtype=torch.bfloat16).to(DEV)
+        gn_ops.launches = 0
+        y = net(x)
+        fwd = gn_ops.launches
+        y.float().mean().backward()
+        torch.cuda.synchronize()
+        counts[norm] = (fwd, gn_ops.launches - fwd)
+    print(f"group_norm (b) launches of one forward and backward of the 3D net (depth 4, top "
+          f"filter 16, bf16): GroupNorm {counts['group']}, BatchNorm {counts['batch']}")
+    check(counts == {"group": (28, 28), "batch": (0, 0)},
+          "group_norm: not 2 launches a GroupNorm forward and backward")
+
+
+def _gn_times() -> dict:
+    """(c) device ms of the kernels, the plain backward and the library
+    calls at every shape and dtype (CUDA events over back-to-back calls
+    behind a spin of the card), the byte bound (each input read once, each
+    output written once); returns the sums over one bf16 net forward at 128
+    patches and one bf16 training step at 64 (the kernels line's
+    numbers)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    totals = {}
+    for label, n in GN_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            total = defaultdict(float)
+            for level in GN_LEVELS:
+                x, groups, w, b, dy = _gn_case(n, level, dtype, gen)
+                _, mean, rstd = gn_ops._forward(x, groups, w, b, GN_EPS)
+                xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+                lib = F.relu(F.group_norm(xg, groups, wg.to(dtype), bg.to(dtype), GN_EPS))
+                row = {
+                    "ms": _kernel_device_ms(lambda t: gn_ops._forward(t, groups, w, b, GN_EPS), x),
+                    "backward_ms": _kernel_device_ms(
+                        lambda t: gn_ops._backward(t, x, groups, w, b, mean, rstd), dy),
+                    "library_ms": _kernel_device_ms(
+                        lambda t: F.relu(F.group_norm(t, groups, w.to(dtype), b.to(dtype),
+                                                      GN_EPS)), x),
+                    "library_backward_ms": _kernel_device_ms(
+                        lambda t: torch.autograd.grad(lib, (xg, wg, bg), t, retain_graph=True),
+                        dy, n=5),
+                    "plain_backward_ms": _kernel_device_ms(
+                        lambda t: gn_ops.group_norm_relu_backward_plain(t, x, groups, w, b, mean,
+                                                                        rstd), dy, n=3),
+                    "bound_ms": _bytes_ms(2 * x.numel() * x.element_size()),
+                    "backward_bound_ms": _bytes_ms(3 * x.numel() * x.element_size()),
+                }
+                row["plain_ms"] = row["library_ms"]  # the plain forward is torch's call
+                print(f"group_norm (c) {label} {n} x {level[0]} {str(dtype)[6:]}: forward "
+                      f"{row['ms']!r} ms ({100 * row['bound_ms'] / row['ms']:.1f}% of the "
+                      f"bound {row['bound_ms']!r}), backward {row['backward_ms']!r} ms "
+                      f"({100 * row['backward_bound_ms'] / row['backward_ms']:.1f}% of "
+                      f"{row['backward_bound_ms']!r}); F.relu(F.group_norm) {row['library_ms']!r} "
+                      f"ms, its backward {row['library_backward_ms']!r} ms; plain backward "
+                      f"{row['plain_backward_ms']!r} ms (bytes at {PEAK['hbm_tbs']} TB/s)")
+                calls = level[1]
+                for k, v in row.items():
+                    total[k] += calls * v
+                del x, dy, xg, wg, bg, lib, mean, rstd
+                torch.cuda.empty_cache()
+            print(f"group_norm (c) the 14 calls of one net forward at {n} patches, "
+                  f"{str(dtype)[6:]}: {json.dumps(total)}; {card_name_and_power()}")
+            totals[(label, dtype)] = dict(total)
+    return {"serve_forward": totals[("serve", torch.bfloat16)],
+            "train_step": totals[("train", torch.bfloat16)]}
+
+
+def phase_group_norm() -> dict:
+    """17. The fused GroupNorm+ReLU kernels: (a) against the plain
+    versions, (b) their launches in a net, (c) their times; returns the
+    kernels line's numbers."""
+    err = _gn_equal()
+    _gn_launches()
+    times = _gn_times()
+    serve, train = times["serve_forward"], times["train_step"]
+    return {"max_ulps": err,
+            "ms": serve["ms"], "bound_ms": serve["bound_ms"], "library_ms": serve["library_ms"],
+            "plain_ms": serve["plain_ms"], "train_step": train}
+
+
 def phase_study(work: str) -> dict:
     """Phase 14: the paired label-efficiency study through its entry point
     at its width, seed 42, three arms (one a pretrainer) at two fractions;
@@ -4853,13 +5085,13 @@ def main() -> None:
         main_launches = phase_main(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as work:
-        phase_3d(rng, work)
+        gn_3d = phase_3d(rng, work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train2d_") as work:
         train2d_drops = phase_train2d(work)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train3d_") as work:
-        phase_train3d(rng, work)
+        gn_train3d = sum(phase_train3d(rng, work).values())
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as work:
         data = phase_ssl(work)
@@ -4883,6 +5115,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dropout_") as work:
         drop = phase_dropout(work)
+    torch.cuda.empty_cache()
+    gnorm = phase_group_norm()
     # no single PyTorch call computes a min-plus pass or an EDT: library_ms null
     kernels = [{
         "name": name, "route": "cuda", "source": "ich_tpu_torch/csrc/edt.cu",
@@ -4906,6 +5140,20 @@ def main() -> None:
         "max_abs_err": drop["max_abs_err"], "ms": drop["ms"], "plain_ms": drop["plain_ms"],
         "bound_ms": drop["bound_ms"], "bound_by": "bytes", "library_ms": drop["library_ms"],
         "device_ms": drop["device_ms"],
+    })
+    # group_norm replaces no TPU kernel (XLA fuses the JAX package's
+    # FlatGroupNorm); its times are the device ms of one bf16 net forward's 14
+    # calls at 128 patches, and the library call, torch's F.relu(F.group_norm),
+    # is also its plain forward
+    kernels.append({
+        "name": "group_norm_relu", "route": "cuda", "source": "ich_tpu_torch/csrc/group_norm.cu",
+        "replaces": "none: XLA's fusion of FlatGroupNorm and the ReLU "
+                    "(ich_tpu/models/layers.py:66)",
+        "launches": gn_3d["serve3d"],
+        "launches_by_path": {"serve3d": gn_3d["serve3d"], "train3d": gn_train3d},
+        "max_ulps": gnorm["max_ulps"], "ms": gnorm["ms"], "plain_ms": gnorm["plain_ms"],
+        "bound_ms": gnorm["bound_ms"], "bound_by": "bytes", "library_ms": gnorm["library_ms"],
+        "train_step": gnorm["train_step"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

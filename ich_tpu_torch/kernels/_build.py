@@ -124,6 +124,8 @@ def load_library() -> ctypes.CDLL:
             "edt_mask_rows": [ptr, ptr, i32, i32, ptr],
             "edt_envelope_cols_sqrt": [ptr, i32, i32, i32, ptr],
             "keyed_dropout": [ptr, ptr, i32, *[i64] * 6, *[u32] * 3, u64, f32, f32, ptr],
+            "group_norm_relu_forward": [*[ptr] * 7, i32, *[i64] * 5, i32, i32, f32, ptr],
+            "group_norm_relu_backward": [*[ptr] * 10, i32, *[i64] * 5, i32, i32, ptr],
         }
         for name, args in signatures.items():
             fn = getattr(lib, name)

@@ -7,12 +7,14 @@ and is not ported: a conv here is ``nn.Conv2d`` / ``nn.Conv3d``.
 Compute dtype: parameters stay float32 and the convs, transposed convs and
 GroupNorms cast them to the input's dtype at use, as flax's
 ``promote_dtype`` does, so a bf16 input runs bf16 convs (float32
-accumulation) while the ``state_dict`` stays float32. GroupNorm on a bf16
-input is torch's fused ``group_norm``: statistics in float32, the
-normalisation in float32, one rounding to bf16. The JAX package's
-``FlatGroupNorm`` rounds its folded scale and shift to bf16 first and
-normalises in bf16: one rounding away (held at 2e-2 on probabilities by
-``tests/test_torch_segment_volume_3d.py``).
+accumulation) while the ``state_dict`` stays float32. A ``ConvBlock``'s
+GroupNorm and the ReLU after it are one call,
+:func:`ich_tpu_torch.ops.group_norm.group_norm_relu` (torch's
+``group_norm`` and ``relu`` on the CPU, fused kernels on the card):
+statistics in float32, the normalisation in float32, one rounding to bf16.
+The JAX package's ``FlatGroupNorm`` rounds its folded scale and shift to
+bf16 first and normalises in bf16: one rounding away (held at 2e-2 on
+probabilities by ``tests/test_torch_segment_volume_3d.py``).
 
 Training follows flax, not torch's defaults: a network family's
 constructor draws every conv, transposed-conv and dense kernel as flax's
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ich_tpu_torch.ops.dropout import keyed_dropout
+from ich_tpu_torch.ops.group_norm import group_norm_relu
 from ich_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -286,10 +289,24 @@ def make_norm(kind: str, channels: int, ndim: int) -> nn.Module:
     raise ValueError(f"unknown norm {kind!r}")
 
 
+def norm_relu(norm: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """``relu(norm(y))``. A GroupNorm and the ReLU are one call,
+    :func:`ich_tpu_torch.ops.group_norm.group_norm_relu` (its kernels on the
+    card), inside a ``group_norm`` profiler range; any other norm runs
+    ``F.relu(norm(y))``."""
+    if isinstance(norm, GroupNorm):
+        with torch.profiler.record_function("group_norm"):
+            # contiguous, as torch's group_norm makes its input
+            return group_norm_relu(y.contiguous(), norm.num_groups, norm.weight, norm.bias,
+                                   norm.eps)
+    return F.relu(norm(y))
+
+
 class ConvBlock(nn.Module):
     """Double [3x3 conv -> norm -> ReLU] with SAME padding and stride 1, and
     dropout at the end (off in eval). Submodule names ``conv1``, ``bn1``,
-    ``conv2``, ``bn2`` follow the reference's torch ``ConvBlock``.
+    ``conv2``, ``bn2`` follow the reference's torch ``ConvBlock``; a
+    GroupNorm and its ReLU run fused (:func:`norm_relu`).
 
     ``gated``: each conv is a gated conv (Yu 2019; the reference's
     ``GatedUNet``, ``GatedUNet.py:121-320``), as the JAX package's: one
@@ -327,8 +344,8 @@ class ConvBlock(nn.Module):
         return feat * torch.sigmoid(gate)
 
     def _body(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self._conv(self.conv1, x)))
-        x = F.relu(self.bn2(self._conv(self.conv2, x)))
+        x = norm_relu(self.bn1, self._conv(self.conv1, x))
+        x = norm_relu(self.bn2, self._conv(self.conv2, x))
         return self.dropout(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

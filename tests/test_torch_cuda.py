@@ -16,6 +16,7 @@ from ich_tpu_torch.models.resnet import resnet18
 from ich_tpu_torch.models.unet import PartialUNet, UNet, UNetEncoder
 from ich_tpu_torch.models.layers import set_dropout_keys
 from ich_tpu_torch.ops import dropout, edt
+from ich_tpu_torch.ops import group_norm as gn
 from ich_tpu_torch.ops import transforms as T
 from ich_tpu_torch.ops import transforms3d as T3
 from ich_tpu_torch.train.classifier import BinaryClassifier, MultiClassifier
@@ -130,6 +131,140 @@ def test_keyed_dropout_backward_on_card(card):
     assert dropout.launches == before + 2
     assert torch.equal(x.grad, dropout.keyed_dropout_plain(g, key, 0.3))
     assert torch.equal(x.grad != 0, y != 0)
+
+
+# (N, C, *spatial, groups): the 3D net's four GroupNorm shapes (depth 4, top
+# filter 16: 16 channels a group at every level) in a serve call of 128
+# patches and a training step of 64, the serve's second call of 97; rows
+# far under the card's 132 SMs (2 and 6); a plane whose length is no
+# multiple of the 16-byte vector; a rank-4 tensor
+GN_SHAPES = [(128, 16, 64, 64, 64, 1), (128, 32, 32, 32, 32, 2), (128, 64, 16, 16, 16, 4),
+             (128, 128, 8, 8, 8, 8), (97, 16, 64, 64, 64, 1), (64, 16, 64, 64, 64, 1),
+             (64, 32, 32, 32, 32, 2), (64, 64, 16, 16, 16, 4), (64, 128, 8, 8, 8, 8),
+             (2, 16, 64, 64, 64, 1), (2, 48, 7, 9, 11, 3), (4, 32, 24, 20, 2)]
+
+
+def _gn_inputs(shape, dtype):
+    *dims, groups = shape
+    g = torch.Generator(device="cuda").manual_seed(sum(dims))
+    x = (torch.randn(dims, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    w = torch.rand(dims[1], device="cuda", generator=g) + 0.5
+    b = torch.randn(dims[1], device="cuda", generator=g) * 0.3
+    dy = torch.randn(dims, device="cuda", generator=g).to(dtype)
+    return x, groups, w, b, dy
+
+
+def _within_bf16_ulp(got, want_f32, atol):
+    """Each bf16 element within one bf16 ulp of the float32 value, or
+    within ``atol`` of it (near zero, where bf16's ulps are finer than the
+    float32 sums' own spread)."""
+    ulp = torch.ldexp(torch.ones_like(want_f32), torch.frexp(want_f32).exponent - 8)
+    err = (got.to(torch.float32) - want_f32).abs()
+    return bool(((err <= ulp) | (err <= atol)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_relu_kernels_match_plain_on_card(card, shape, dtype):
+    """Forward and backward kernels against the plain versions on the card,
+    two launches each. bf16: the output and dx each within one bf16 ulp of
+    the plain version computed in float32, or within 1e-5 of the largest
+    element near zero (the order of the float32 sums moves the value by
+    some 1e-7 of the largest); float32: within 1e-5 of the largest. The
+    backward's plain version takes the kernels' statistics, so its mask is
+    theirs; dweight and dbias, sums over N x S elements, within 1e-4 of the
+    largest. The statistics within 1e-6 (mean, of the inputs' scale) and
+    1e-5 (rstd, relative) of the plain ones."""
+    x, groups, w, b, dy = _gn_inputs(shape, dtype)
+    before = gn.launches
+    y, mean, rstd = gn._forward(x, groups, w, b, 1e-6)
+    dx, dw, db = gn._backward(dy, x, groups, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert gn.launches == before + 4
+    m, r = gn._stats_plain(x, groups, 1e-6)
+    assert float((mean - m).abs().max()) <= 1e-6 * float(x.float().abs().max())
+    assert float(((rstd - r) / r).abs().max()) <= 1e-5
+    _hold_to_plain(x, groups, w, b, dy, mean, rstd, y, dx, dw, db)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_SHAPES[:9])
+def test_group_norm_relu_entry_matches_plain_on_card(card, shape, dtype):
+    """The nets' entry, ``group_norm_relu`` on leaves that want gradients,
+    its backward through autograd, at the serve's and the training step's
+    shapes: the output and the gradients of ``x``, ``weight`` and ``bias``
+    held to the plain versions at the kernels' tolerances above, the
+    plain backward taking the statistics of a direct forward launch (the
+    kernels sum in a fixed order, so they are the entry's own)."""
+    x, groups, w, b, dy = _gn_inputs(shape, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = gn.launches
+    y = gn.group_norm_relu(leaves[0], groups, leaves[1], leaves[2], 1e-6)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert gn.launches == before + 4
+    assert "GroupNormReLUBackward" in y.grad_fn.name()
+    _, mean, rstd = gn._forward(x, groups, w, b, 1e-6)
+    _hold_to_plain(x, groups, w, b, dy, mean, rstd, y.detach(),
+                   *(t.grad for t in leaves))
+
+
+def _hold_to_plain(x, groups, w, b, dy, mean, rstd, y, dx, dw, db):
+    wr, br = w.to(x.dtype).float(), b.to(x.dtype).float()  # as the kernels take them
+    want = gn.group_norm_relu_plain(x.float(), groups, wr, br, 1e-6)
+    tol = 1e-5 * float(want.abs().max())
+    if x.dtype == torch.bfloat16:
+        assert _within_bf16_ulp(y, want, tol)
+    else:
+        assert float((y - want).abs().max()) <= tol
+    pdx, pdw, pdb = gn.group_norm_relu_backward_plain(dy.float(), x.float(), groups, wr, br,
+                                                      mean, rstd)
+    tol = 1e-5 * float(pdx.abs().max())
+    assert dx.dtype == x.dtype
+    if x.dtype == torch.bfloat16:
+        assert _within_bf16_ulp(dx, pdx, tol)
+    else:
+        assert float((dx - pdx).abs().max()) <= tol
+    for got, ref in ((dw, pdw), (db, pdb)):
+        assert got.dtype == torch.float32
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_group_norm_relu_misaligned_tensor_on_card(card):
+    """A contiguous view one element into its storage takes the
+    one-element loads and matches the aligned tensor's result."""
+    x, groups, w, b, dy = _gn_inputs((2, 32, 8, 8, 8, 2), torch.bfloat16)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(gn.group_norm_relu(shifted, groups, w, b, 1e-6),
+                       gn.group_norm_relu(x, groups, w, b, 1e-6))
+
+
+def test_group_norm_relu_launches_a_net_forward_and_backward(card):
+    """The 3D net (depth 4, top filter 16, GroupNorm, bf16): 14 GroupNorms a
+    forward, 2 launches each, and as many in its backward; a BatchNorm
+    net launches none."""
+    x = torch.randn(2, 1, 32, 32, 32, device="cuda")
+    for norm, per_pass in (("group", 28), ("batch", 0)):
+        net = UNet(depth=4, ndim=3, top_filter=16, midchannels_factor=1, norm=norm,
+                   p_dropout=0.0, dtype=torch.bfloat16).cuda()
+        before = gn.launches
+        with torch.no_grad():
+            net(x)
+        assert gn.launches == before + per_pass
+        net(x).float().mean().backward()
+        torch.cuda.synchronize()
+        assert gn.launches == before + 3 * per_pass
+
+
+def test_group_norm_relu_refuses_on_card(card):
+    w = torch.ones(16, device="cuda")
+    for x in (torch.zeros(2, 16, 4, 4, 4, device="cuda", dtype=torch.float16),
+              torch.zeros(2, 16, 4, 4, 4, device="cuda").contiguous(
+                  memory_format=torch.channels_last_3d),
+              torch.zeros(2, 16, 64, device="cuda")):
+        with pytest.raises(ValueError):
+            gn.group_norm_relu(x, 1, w, w)
 
 
 def test_segment_volume_card_matches_cpu(card):
