@@ -1,9 +1,11 @@
 """The benchmark's data: ``BENCHMARK.json`` at the checkout's root, one
 ``workloads/<cell>.json`` per cell and one ``configs/<config>.json`` per
-configuration, found by name."""
+configuration, and the modules of a cell's driver and net, found by
+name."""
 
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
 from typing import List
@@ -29,6 +31,17 @@ def cell(name: str) -> dict:
     w["traffic_name"] = w["traffic"]
     w["traffic"] = load_json(PKG / "traffic" / f"{w['traffic']}.json")
     return w
+
+
+def driver(cell: dict):
+    """The module of the cell's timed path, ``drivers/<driver>.py``."""
+    return importlib.import_module(f"portbench.drivers.{cell['driver']}")
+
+
+def net(net_cfg: dict):
+    """The module of a configuration's net, ``nets/<arch>.py``: ``arch``
+    names it, and without one it is the U-Net."""
+    return importlib.import_module(f"portbench.nets.{net_cfg.get('arch', 'unet')}")
 
 
 def end_to_end(bench: dict, cell_name: str) -> List[dict]:

@@ -14,7 +14,6 @@ compared is drawn as a run draws it.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import sys
 import time
@@ -57,7 +56,7 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 3
     cell = manifest.cell(args.workload)
-    mod = importlib.import_module(f"portbench.drivers.{cell['driver']}")
+    mod = manifest.driver(cell)
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         d = mod.Driver(cell, seed, "cuda")

@@ -1,8 +1,8 @@
 """Served 3D volumes: a closed loop of one client with one volume in flight,
 each a HU volume already in host memory handed to
-``UNet3D.segment_volume(vol, window=...)`` (upload, HU window, the bf16
-net over the sliding window's patches, the Gaussian blend, the threshold)
-until its {0, 255} mask is a host array."""
+``UNet3D.segment_volume(vol, window=...)`` (upload, HU window, the
+configuration's net over the sliding window's patches, the Gaussian
+blend, the threshold) until its {0, 255} mask is a host array."""
 
 from __future__ import annotations
 
@@ -11,15 +11,22 @@ import time
 import numpy as np
 import torch
 
-from portbench.common import data
-from portbench.common.flops import net_flops
+from portbench.common import data, manifest
 from portbench.common.readout import NET_RANGE
-from portbench.common.weights import calibrate_final_bias, load_into, make_weights
-from portbench.reference import sliding_window as ref_sw, unet as ref_unet
+from portbench.common.weights import load_into
+from portbench.reference import sliding_window as ref_sw
 from portbench.reference.fp8 import quant_e4m3
 from portbench.reference.train import exact_fp32
 
 SAMPLE = 4  # served masks kept, a uniform sample drawn from the seed
+
+
+def tiny(cell: dict, patch: int) -> None:
+    """Cut ``cell`` for a CPU test, around the net's tiny patch edge
+    ``patch``: three volumes of ``patch`` x 4 ``patch`` x 4 ``patch``, 32
+    patches a call."""
+    cell["config_data"]["inference"].update(patch_size=[patch] * 3, sw_batch_size=32)
+    cell["traffic"].update(pool=3, volume_shape=[patch, 4 * patch, 4 * patch])
 
 
 class _Annotated(torch.nn.Module):
@@ -38,25 +45,22 @@ class Driver:
     unit = "volumes"
 
     def __init__(self, cell: dict, seed: int, device):
-        from ich_tpu_torch.models.unet import UNet
         from ich_tpu_torch.train.segmentation3d import UNet3D
 
         self.cfg, self.traffic = cell["config_data"], cell["traffic"]
         self.seed, self.device = seed, torch.device(device)
         net_cfg, inf = self.cfg["net"], self.cfg["inference"]
+        self.arch = manifest.net(net_cfg)  # nets/<arch>.py
         self.window_hu = tuple(self.cfg["data"]["window"])
         vols, _ = data.volumes_dhw(seed, self.traffic["pool"], self.traffic["volume_shape"],
                                    self.device)
         self.pool = [v.cpu().numpy() for v in vols]
         _, gen = data.generators(seed + 1, self.device)
-        self.weights = make_weights(net_cfg, gen, self.device)
-        calibrate_final_bias(self.weights, net_cfg, self._central_patches(vols[0]), train=False)
+        self.weights = self.arch.make_weights(net_cfg, gen, self.device)
+        self.arch.calibrate_final_bias(self.weights, net_cfg, self._central_patches(vols[0]),
+                                       train=False)
         del vols
-        with self.device:
-            net = UNet(depth=net_cfg["depth"], ndim=3, top_filter=net_cfg["top_filter"],
-                       midchannels_factor=net_cfg["midchannels_factor"],
-                       p_dropout=net_cfg["p_dropout"], norm=net_cfg["norm"],
-                       dtype=getattr(torch, net_cfg["compute_dtype"]))
+        net = self.arch.build(net_cfg, self.device)
         load_into(net, self.weights)
         self.patch = tuple(inf["patch_size"])
         self.trainer = UNet3D(net, patch_size=self.patch, sw_overlap=inf["sw_overlap"],
@@ -70,8 +74,8 @@ class Driver:
     def work(self) -> dict:
         """A volume's FLOPs: the net's forward over every patch of the
         sliding window's grid, from the shapes."""
-        return {"flops": len(self._grid()) * net_flops(self.cfg["net"], 1, self.patch,
-                                                       train=False)}
+        return {"flops": len(self._grid()) * self.arch.flops(self.cfg["net"], 1, self.patch,
+                                                             train=False)}
 
     def _grid(self):
         d, h, w = self.traffic["volume_shape"]
@@ -124,7 +128,7 @@ class Driver:
         vol = torch.from_numpy(self.pool[k]).to(self.device)
         with exact_fp32():
             return ref_sw.probabilities(
-                lambda x: ref_unet.forward(self.weights, x, net_cfg, quant=quant), vol,
+                lambda x: self.arch.forward(self.weights, x, net_cfg, quant=quant), vol,
                 self.patch, self.cfg["inference"]["sw_overlap"], self.window_hu)
 
     def _judge(self, served) -> dict:

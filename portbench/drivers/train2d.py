@@ -10,20 +10,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.common import data
-from portbench.common.flops import dropout_bytes, net_flops
+from portbench.common import data, manifest
 from portbench.common.training import N_CHECKED, Steps, fit_window, judge
-from portbench.common.weights import calibrate_final_bias, load_into, make_weights
-from portbench.reference import augment, rng, unet as ref_unet
+from portbench.common.weights import load_into
+from portbench.reference import augment, rng
 from portbench.reference.train import dice_terms, exact_fp32, lr_at, run_steps
+
+
+def tiny(cell: dict, patch: int) -> None:
+    """Cut ``cell`` for a CPU test: 32 slices of 32 x 32, 8 a step (the
+    net's patch edge is a 3D cell's)."""
+    cell["config_data"]["data"]["slice_shape"] = [32, 32]
+    cell["config_data"]["train"]["batch_size"] = 8
+    cell["traffic"].update(slices=32)
 
 
 class Driver:
     unit = "steps"
 
-    def __init__(self, cell: dict, seed: int, device, dtype=torch.float32):
+    def __init__(self, cell: dict, seed: int, device, dtype=None):
         from ich_tpu_torch.data.core import SliceDataset2D
-        from ich_tpu_torch.models.unet import UNet
         from ich_tpu_torch.ops.transforms import build_pipeline
         from ich_tpu_torch.train.segmentation2d import UNet2D
 
@@ -31,17 +37,15 @@ class Driver:
         self.traffic = cell["traffic"]
         self.seed, self.device = seed, torch.device(device)
         net_cfg, tr = self.cfg["net"], self.cfg["train"]
+        self.arch = manifest.net(net_cfg)  # nets/<arch>.py
         n, hw = self.traffic["slices"], tuple(self.cfg["data"]["slice_shape"])
         self.steps_per_epoch = -(-n // tr["batch_size"])
         images, masks = data.slices(seed, n, hw, self.traffic["positive_share"],
                                     self.cfg["data"]["window"], self.device)
         _, gen = data.generators(seed + 1, self.device)
-        self.weights = make_weights(net_cfg, gen, self.device)
-        calibrate_final_bias(self.weights, net_cfg, images[:32, None], train=True)
-        with self.device:
-            net = UNet(depth=net_cfg["depth"], ndim=2, top_filter=net_cfg["top_filter"],
-                       midchannels_factor=net_cfg["midchannels_factor"],
-                       p_dropout=net_cfg["p_dropout"], norm=net_cfg["norm"], dtype=dtype)
+        self.weights = self.arch.make_weights(net_cfg, gen, self.device)
+        self.arch.calibrate_final_bias(self.weights, net_cfg, images[:32, None], train=True)
+        net = self.arch.build(net_cfg, self.device, dtype)
         load_into(net, self.weights)
         self.buffers0 = {k: v.clone() for k, v in net.state_dict().items()
                          if "running" in k}
@@ -64,8 +68,8 @@ class Driver:
         """A step's FLOPs and the dropout's bytes, from the shapes."""
         net_cfg, b = self.cfg["net"], self.cfg["train"]["batch_size"]
         hw = tuple(self.cfg["data"]["slice_shape"])
-        return {"flops": net_flops(net_cfg, b, hw, train=True),
-                "dropout_bytes": dropout_bytes(net_cfg, b, hw)}
+        return {"flops": self.arch.flops(net_cfg, b, hw, train=True),
+                "dropout_bytes": self.arch.dropout_bytes(net_cfg, b, hw)}
 
     def annotate(self) -> None:
         """Nothing: the per-layer metrics read the program's own ranges."""
@@ -99,7 +103,7 @@ class Driver:
         b, w = tr["batch_size"], self.steps_per_epoch
         perm = np.random.default_rng(self.seed).permutation(n)
         spec = self.cfg["data"]["augmentation"]
-        paths = ref_unet.dropout_paths(net_cfg)
+        paths = self.arch.dropout_paths(net_cfg)
         keep = np.float32(1.0 - net_cfg["p_dropout"])
         root = rng.fold_in(rng.prng_key(self.seed), 0)
 
@@ -119,8 +123,8 @@ class Driver:
                 u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
                 return torch.where(u < float(keep), tl / float(keep), 0.0).movedim(-1, 1)
 
-            pred = ref_unet.forward(params, x, net_cfg, train=True, running=bufs,
-                                    dropout=dropout)
+            pred = self.arch.forward(params, x, net_cfg, train=True, running=bufs,
+                                     dropout=dropout)
             if half_batch:
                 pred, y = pred[:b // 2], y[:b // 2]
             kw = tr["loss_fn_kwargs"]

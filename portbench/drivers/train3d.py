@@ -1,6 +1,6 @@
 """3D patch training: ``UNet3D.train`` -> ``fit`` -> a batch of patches
-drawn by ``DevicePatchSampler`` from the step's key, the bf16 net with
-GroupNorm in train mode, Dice, backward and Adam, over a device-resident
+drawn by ``DevicePatchSampler`` from the step's key, the configuration's
+net in train mode, Dice, backward and Adam, over a device-resident
 ``VolumeDataset3D``. One warm epoch is set-up. The check follows
 set-up's first steps from the seed and the window's first step from the
 program's state as the window began (``common.training``)."""
@@ -10,13 +10,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.common import data
-from portbench.common.flops import net_flops
+from portbench.common import data, manifest
 from portbench.common.training import N_CHECKED, Steps, against, fit_window, judge
-from portbench.common.weights import calibrate_final_bias, load_into, make_weights
-from portbench.reference import rng, sampler, unet as ref_unet
+from portbench.common.weights import load_into
+from portbench.reference import rng, sampler
 from portbench.reference.fp8 import quant_e4m3
 from portbench.reference.train import dice_terms, exact_fp32, lr_at, run_steps
+
+
+def tiny(cell: dict, patch: int) -> None:
+    """Cut ``cell`` for a CPU test, around the net's tiny patch edge
+    ``patch``: three volumes of ``patch`` x 4 ``patch`` x 4 ``patch``, 4
+    patches a step, 4 steps an epoch."""
+    cell["config_data"]["train"].update(patch_size=[patch] * 3, batch_size=4,
+                                        steps_per_epoch=4)
+    cell["traffic"].update(volumes=3, volume_shape=[patch, 4 * patch, 4 * patch])
 
 
 class Driver:
@@ -24,26 +32,23 @@ class Driver:
 
     def __init__(self, cell: dict, seed: int, device):
         from ich_tpu_torch.data.core import VolumeDataset3D
-        from ich_tpu_torch.models.unet import UNet
         from ich_tpu_torch.train.segmentation3d import UNet3D
 
         self.cfg, self.traffic = cell["config_data"], cell["traffic"]
         self.seed, self.device = seed, torch.device(device)
         net_cfg, tr = self.cfg["net"], self.cfg["train"]
+        self.arch = manifest.net(net_cfg)  # nets/<arch>.py
         self.patch = tuple(tr["patch_size"])
         vols, masks = self._volumes()
         _, gen = data.generators(seed + 1, self.device)
-        self.weights = make_weights(net_cfg, gen, self.device)
-        calibrate_final_bias(self.weights, net_cfg, self._central_patches(vols[0]), train=True)
+        self.weights = self.arch.make_weights(net_cfg, gen, self.device)
+        self.arch.calibrate_final_bias(self.weights, net_cfg, self._central_patches(vols[0]),
+                                       train=True)
         dataset = VolumeDataset3D([v.cpu().numpy() for v in vols],
                                   [m.cpu().numpy() for m in masks],
                                   np.arange(len(vols), dtype=np.int32))
         del vols, masks
-        with self.device:
-            net = UNet(depth=net_cfg["depth"], ndim=3, top_filter=net_cfg["top_filter"],
-                       midchannels_factor=net_cfg["midchannels_factor"],
-                       p_dropout=net_cfg["p_dropout"], norm=net_cfg["norm"],
-                       dtype=getattr(torch, net_cfg["compute_dtype"]))
+        net = self.arch.build(net_cfg, self.device)
         load_into(net, self.weights)
         self.dataset = dataset
         self.trainer = UNet3D(
@@ -60,8 +65,8 @@ class Driver:
 
     def work(self) -> dict:
         """A step's FLOPs, from the shapes."""
-        return {"flops": net_flops(self.cfg["net"], self.cfg["train"]["batch_size"],
-                                   self.patch, train=True)}
+        return {"flops": self.arch.flops(self.cfg["net"], self.cfg["train"]["batch_size"],
+                                         self.patch, train=True)}
 
     def _volumes(self):
         return data.volumes_dhw(self.seed, self.traffic["volumes"],
@@ -115,7 +120,7 @@ class Driver:
             x, y = sampler.gather(vols, masks, vi, st, self.patch)
             if half_batch:
                 x, y = x[:b // 2], y[:b // 2]
-            pred = ref_unet.forward(params, x[:, None], net_cfg, train=True, quant=quant)
+            pred = self.arch.forward(params, x[:, None], net_cfg, train=True, quant=quant)
             kw = tr["loss_fn_kwargs"]
             return dice_terms(pred, y, p=kw["p"], alpha=kw["alpha"])
 

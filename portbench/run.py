@@ -9,13 +9,15 @@ state is freed and the plain reference judges what the window produced.
 With ``--trace 1`` the window runs under ``torch.profiler`` and the line
 carries the cell's per-layer metrics instead of its end-to-end ones. The
 last lines on standard error, and the line's last key, are the numbers
-compared with their limits.
+compared with their limits. A cell of four cards runs one process a card:
+the driver's set-up starts the others (``common/ranks.py``), and this
+process, rank 0, measures; ``device.count`` is the size of the group that
+ran, and a run whose count is not its cell's ``chips`` raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import math
 import os
@@ -70,8 +72,7 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     from portbench.common.trace import TraceSummary
 
     t_import = time.time() - started
-    driver = importlib.import_module(f"portbench.drivers.{cell['driver']}").Driver(
-        cell, seed, device)
+    driver = manifest.driver(cell).Driver(cell, seed, device)
     if trace:
         driver.annotate()
     on_card = torch.device(device).type == "cuda"
@@ -100,7 +101,7 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
     name = cell["name"]
     dev_info = {"platform": "gpu" if on_card else "cpu",
                 "kind": torch.cuda.get_device_name() if on_card else "cpu",
-                "count": 1, "memory_peak_bytes": int(peak_bytes)}
+                "count": 0, "memory_peak_bytes": 0}
     metrics, extra = {}, {}
     if trace:
         summary = TraceSummary(prof)
@@ -121,7 +122,15 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device: str,
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
 
     t_read = time.time() - started
+    # a multi-card cell's group (common/ranks.py), which free() closes: the
+    # cards it ran on, and the fullest one's peak, reported by every rank
+    group = getattr(driver, "ranks", None)
     driver.free()
+    count, group_peak = (group.world, group.peak_bytes) if group else (1, 0)
+    if count != cell["chips"]:
+        raise RuntimeError(f"{name} asks for {cell['chips']} cards and ran on {count}")
+    dev_info["count"] = count
+    dev_info["memory_peak_bytes"] = int(max(peak_bytes, group_peak))
     readings = driver.check()
     print(f"seconds from the process's start: imports {t_import:.2f}, "
           f"set-up done {setup_s:.2f}, window and its reading done {t_read:.2f}, "

@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from portbench.common.flops import dropout_bytes, net_flops
+from portbench.nets import unet
 from portbench.reference import unet as ref_unet
 
 CFGS = {
@@ -48,17 +48,17 @@ def test_net_flops_match_the_closed_form(name):
     cfg = CFGS[name]
     spatial = (32,) * cfg["ndim"]
     fwd, first = closed_form(cfg, 2, spatial)
-    assert net_flops(cfg, 2, spatial, train=False) == fwd
+    assert unet.flops(cfg, 2, spatial, train=False) == fwd
     # backward: each conv's weight gradient and its input's gradient cost
     # what its forward does, but the image needs no gradient
-    assert net_flops(cfg, 2, spatial, train=True) == fwd + fwd + (fwd - first)
+    assert unet.flops(cfg, 2, spatial, train=True) == fwd + fwd + (fwd - first)
 
 
 def test_headline_counts():
-    assert net_flops(CFGS["unet3d_d4f16"], 1, (64, 64, 64), train=False) == 28_110_225_408
+    assert unet.flops(CFGS["unet3d_d4f16"], 1, (64, 64, 64), train=False) == 28_110_225_408
 
 
 def test_dropout_bytes_read_and_write_each_level_twice():
     cfg = CFGS["unet2d_d5f32"]
     per_sample = sum(32 * 2 ** lv * (256 // 2 ** lv) ** 2 for lv in range(5))
-    assert dropout_bytes(cfg, 128, (256, 256)) == 16 * 128 * per_sample
+    assert unet.dropout_bytes(cfg, 128, (256, 256)) == 16 * 128 * per_sample

@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports the JAX stack or the JAX package
 (top-level names compared whole: ``ich_tpu_torch`` is not ``ich_tpu``),
-and the plain reference imports nothing of the program."""
+the plain reference imports nothing of the program, and the drivers and
+nets import it only inside their functions."""
 
 import ast
 import sys
@@ -43,3 +44,12 @@ def test_the_run_guard_compares_whole_names(monkeypatch):
     assert "ich_tpu" not in forbidden_modules()
     monkeypatch.setitem(sys.modules, "ich_tpu.fake", sys)
     assert "ich_tpu" in forbidden_modules()
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "drivers").glob("*.py")) + sorted(
+    (PKG / "nets").glob("*.py")), ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_drivers_and_nets_import_the_program_when_called(path):
+    top = ast.parse(path.read_text()).body
+    mods = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    mods += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not {m.partition(".")[0] for m in mods} & {"ich_tpu_torch", "ich_tpu"}

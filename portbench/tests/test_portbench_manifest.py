@@ -1,8 +1,10 @@
 """``BENCHMARK.json`` and the files it names, against the benchmark's
 contract: names and units from the allowed characters, every cell on one
-chip and found by its files, every per-layer metric read by a reader of
-its own in cells that report the metric it moves."""
+card or four (four for at most a quarter of the cells, or one) and found
+by its files, every per-layer metric read by a reader of its own in cells
+that report the metric it moves."""
 
+import copy
 import re
 
 import pytest
@@ -46,14 +48,39 @@ def test_bounds():
     assert any(m["name"] == "setup_s" and "workloads" not in m for m in BENCH["end_to_end"])
 
 
+def cards_within_the_contract(bench: dict) -> bool:
+    """Every cell asks for 1 card or 4, and at most a quarter of the cells
+    (rounded down), or one, for 4."""
+    chips = [w["chips"] for w in bench["workloads"]]
+    return set(chips) <= {1, 4} and chips.count(4) <= max(1, len(chips) // 4)
+
+
+def test_cells_ask_for_one_card_or_four():
+    assert cards_within_the_contract(BENCH)
+
+
+@pytest.mark.parametrize("one,four,ok", [(3, 1, True), (3, 2, False), (7, 2, True),
+                                         (7, 3, False), (0, 1, True), (0, 2, False)])
+def test_four_card_cells_within_the_contract(one, four, ok):
+    """On an in-memory copy of the manifest with ``one`` one-card cells
+    and ``four`` four-card cells."""
+    bench = copy.deepcopy(BENCH)
+    w = bench["workloads"][0]
+    bench["workloads"] = ([{**w, "name": f"one_{i}", "chips": 1} for i in range(one)]
+                          + [{**w, "name": f"four_{i}", "chips": 4} for i in range(four)])
+    assert cards_within_the_contract(bench) is ok
+    bench["workloads"][-1]["chips"] = 2
+    assert not cards_within_the_contract(bench)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_agree_with_the_manifest(cell):
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
-    assert entry["chips"] == 1
     c = manifest.cell(cell)
     assert (c["config"], c["traffic_name"], c["chips"]) == (
         entry["config"], entry["traffic"], entry["chips"])
     assert (manifest.PKG / "drivers" / f"{c['driver']}.py").exists()
+    assert (manifest.PKG / "nets" / f"{c['config_data']['net'].get('arch', 'unet')}.py").exists()
     assert c["limits"] and all(v >= 0 for v in c["limits"].values())
     conf = next(x for x in BENCH["configs"] if x["name"] == c["config"])
     assert conf["file"] == f"portbench/configs/{c['config']}.json"

@@ -6,29 +6,28 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.common.weights import load_into, make_weights
+from portbench.common.weights import load_into
+from portbench.nets import unet
 from portbench.reference import augment, rng as ref_rng, sampler, unet as ref_unet
 
+PROGRAM = dict(p_dropout=0.0, compute_dtype="float32", in_channels=1, out_channels=1)
 NETS = {
     "unet2d_batch": dict(ndim=2, depth=3, top_filter=4, midchannels_factor=1, norm="batch",
-                         in_channels=1, out_channels=1),
+                         **PROGRAM),
     "unet3d_group": dict(ndim=3, depth=3, top_filter=16, midchannels_factor=1, norm="group",
-                         in_channels=1, out_channels=1),
+                         **PROGRAM),
     "unet2d_mcf2": dict(ndim=2, depth=4, top_filter=8, midchannels_factor=2, norm="batch",
-                        in_channels=1, out_channels=1),
+                        **PROGRAM),
 }
 
 
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("name", sorted(NETS))
 def test_reference_unet_matches_the_program(name, train):
-    from ich_tpu_torch.models.unet import UNet
-
     cfg = NETS[name]
-    net = UNet(depth=cfg["depth"], ndim=cfg["ndim"], top_filter=cfg["top_filter"],
-               midchannels_factor=cfg["midchannels_factor"], norm=cfg["norm"], p_dropout=0.0)
+    net = unet.build(cfg, "cpu")
     gen = torch.Generator().manual_seed(3)
-    weights = make_weights(cfg, gen, "cpu")
+    weights = unet.make_weights(cfg, gen, "cpu")
     load_into(net, weights)
     x = torch.rand((2, 1) + (16,) * cfg["ndim"], generator=gen)
     running = ref_unet.running_stats(cfg, "cpu")

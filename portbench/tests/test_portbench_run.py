@@ -103,10 +103,8 @@ def test_the_control_comes_out_not_correct_on_the_card(cell):
     limits, fail at least one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import importlib
-
     c = manifest.cell(cell)
-    d = importlib.import_module(f"portbench.drivers.{c['driver']}").Driver(c, SEED, "cuda")
+    d = manifest.driver(c).Driver(c, SEED, "cuda")
     win = d.window(3.0)
     d.free()
     readings = d.control()
